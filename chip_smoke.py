@@ -1,0 +1,528 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``waymo_2d_tracking_tpu_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases (any failed check raises, and the script exits non-zero):
+
+0. the card (``nvidia-smi`` name and power limit), then ``nvcc`` builds both
+   CUDA kernels from ``waymo_2d_tracking_tpu_torch/csrc/`` in parallel;
+1. each kernel against its plain PyTorch version on the card at the main
+   path's shapes -- NMS keep-masks bit-equal at (B=128, N=1024) with class
+   offsets plus the chain and invalid cases; auction row -> col equal on a
+   batch of 256 tracker-like problems at n=64 and a few at n=128, and within
+   n * eps_min of scipy on a sample -- with CUDA-event times;
+2. the trained fixtures in float32 with TF32 off through the whole slice:
+   seed-5 and dense-clip MOTA/IDF1/IDSW floors and the ReID recovery gain,
+   with both kernel counters rising;
+3. the headline preset (``configs/headline.yaml``) at full width in bf16 with
+   seeded random weights, 3 runs of 2 chunks of 128 frames at 640x960 after
+   a warm-up chunk: frames/s and the launch counts of both kernels on each
+   main-path run; the split of a chunk into letterbox / detector forward /
+   candidates + NMS + RoIAlign + ReID / tracker loop (CUDA events); and, as a
+   separate measurement, the device's busy share of 3 traced chunks
+   (``torch.profiler``), each from its own trace.
+
+The last two lines are the kernels' JSON record and the device record. It
+imports no JAX and nothing of the JAX package.
+"""
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+# configs/headline.yaml, as a dict (the card machine need not have pyyaml);
+# a CPU test pins it to the yaml file.
+HEADLINE = {
+    "detector": {
+        "image_size": [448, 672],
+        "backbone": "resnet18",
+        "stem": "s2d",
+        "fpn_channels": 128,
+        "fpn_levels": [3, 4, 5, 6],
+        "head_channels": 128,
+        "head_depth": 2,
+        "reid_channels": 128,
+        "embed_dim": 128,
+        "max_detections": 64,
+    },
+    "tracker": {
+        "max_tracks": 64,
+        "max_detections": 64,
+        "embed_dim": 128,
+        "appearance_weight": 0.3,
+        "assignment": "auction",
+        "reid_recovery": True,
+        "max_lost_age": 30,
+        "gallery_size": 4,
+    },
+    "pipeline": {
+        "cameras": ["FRONT"],
+        "chunk_frames": 128,
+        "decode_scale_denom": 2,
+    },
+}
+
+# Published H100 SXM peaks (dense): HBM bandwidth, and float32 outside the
+# tensor cores (both kernels do scalar f32 / integer work).
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_OPS_PER_S = 67e12
+
+# tests/golden/test_pixels_to_mota.py and test_reid_recovery.py settings
+PIXELS_DET = dict(
+    backbone="resnet18slim", image_size=(256, 384), fpn_channels=32,
+    fpn_levels=(3, 4, 5), head_depth=2, head_channels=32,
+    pre_nms_topk=128, nms_topk=256, max_detections=32, embed_dim=0,
+    dtype="float32", score_threshold=0.3,
+)
+PIXELS_TRK = dict(
+    max_tracks=32, max_detections=32, embed_dim=0, n_init=2, max_age=5,
+    iou_threshold=0.3, score_threshold=0.55, birth_score_threshold=0.65,
+)
+
+
+def log(*args):
+    print(*args, flush=True)
+
+
+def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Median CUDA-event time of ``fn`` over ``reps`` runs, in ms."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(bytes_moved: float, ops: float):
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ----------------------------------------------------------------- phase 1
+
+def nms_inputs(torch, b: int, n: int, seed: int):
+    """Score-sorted candidate boxes like the detector's: clusters of
+    overlapping boxes around objects plus clutter, class offsets 1e5."""
+    g = torch.Generator().manual_seed(seed)
+    centers = torch.rand(b, 40, 2, generator=g) * torch.tensor([672.0, 448.0])
+    sizes = 20 + torch.rand(b, 40, 2, generator=g) * 140
+    obj = torch.randint(0, 40, (b, n), generator=g)
+    jitter = torch.randn(b, n, 4, generator=g) * 6
+    c = torch.gather(centers, 1, obj[..., None].expand(-1, -1, 2))
+    s = torch.gather(sizes, 1, obj[..., None].expand(-1, -1, 2))
+    boxes = torch.cat([c - s / 2, c + s / 2], dim=-1) + jitter
+    boxes[..., 2:] = torch.maximum(boxes[..., 2:], boxes[..., :2] + 1)
+    classes = torch.randint(0, 3, (b, n, 1), generator=g).float()
+    boxes = boxes + classes * 1e5
+    valid = torch.rand(b, n, generator=g) > 0.1
+    return boxes.contiguous(), valid.contiguous()
+
+
+def phase_kernels(torch, nms, assign, card):
+    dev = torch.device("cuda")
+    # --- NMS at the headline shapes: B = chunk 128, N = nms_topk 1024
+    boxes, valid = nms_inputs(torch, 128, 1024, seed=1)
+    boxes, valid = boxes.to(dev), valid.to(dev)
+    got = nms.nms_mask_cuda(boxes, valid, 0.6)
+    want = nms.nms_mask_reference(boxes, valid, 0.6)
+    torch.cuda.synchronize()
+    nms_err = float((got.int() - want.int()).abs().max())
+    if not torch.equal(got, want):
+        raise AssertionError(f"NMS kernel != plain at (128, 1024): "
+                             f"{int((got != want).sum())} entries differ")
+    chain = torch.tensor([[[0, 0, 10, 10], [6, 0, 16, 10], [12, 0, 22, 10]]],
+                         dtype=torch.float32, device=dev)
+    keep = nms.nms_mask_cuda(chain, torch.ones(1, 3, dtype=torch.bool, device=dev), 0.2)
+    if keep.tolist() != [[True, False, True]]:
+        raise AssertionError(f"NMS chain-revival case: {keep.tolist()}")
+    sparse_valid = (torch.rand(4, 1000, device=dev) > 0.6).contiguous()
+    b2, _ = nms_inputs(torch, 4, 1000, seed=2)
+    b2 = b2.to(dev)
+    k2 = nms.nms_mask_cuda(b2, sparse_valid, 0.5)
+    if not torch.equal(k2, nms.nms_mask_reference(b2, sparse_valid, 0.5)) or k2[~sparse_valid].any():
+        raise AssertionError("NMS invalid-entry case differs from the plain version")
+    nms_ms = cuda_time_ms(lambda: nms.nms_mask_cuda(boxes, valid, 0.6), reps=30)
+    nms_plain_ms = cuda_time_ms(lambda: nms.nms_mask_reference(boxes, valid, 0.6),
+                                reps=3, warmup=1)
+    # Greedy needs the IoU only of pairs (kept i, valid j > i): a box that is
+    # removed suppresses nothing. 14 operations per pair: 4 max/min, 2 sub,
+    # 2 clamp, 1 mul, add + sub, 1 max, 1 div, 1 compare.
+    v = valid.int()
+    valid_after = v.flip(1).cumsum(1).flip(1) - v
+    pairs = float((want.double() * valid_after.double()).sum())
+    nms_bound, nms_by = bound(boxes.numel() * 4 + valid.numel() * 2, 14 * pairs)
+    log(f"[1] nms kernel == plain at (B=128, N=1024) with class offsets, chain "
+        f"and invalid cases ({card}): kernel {nms_ms:.4f} ms (median of 30), "
+        f"plain {nms_plain_ms:.2f} ms (median of 3), bound {nms_bound:.6f} ms ({nms_by}); "
+        f"kept {int(want.sum())} of {int(valid.sum())} valid, {pairs:.0f} (kept, later valid) pairs")
+
+    # --- auction: tracker-like problems through _build_benefit
+    def problems(count, r, c, n, seed):
+        g = torch.Generator().manual_seed(seed)
+        bens, eps0, costs, valids = [], [], [], []
+        for _ in range(count):
+            cost = torch.rand(r, c, generator=g) * 1.3
+            ok = ((torch.rand(r, generator=g) < 0.8)[:, None]
+                  & (torch.rand(c, generator=g) < 0.8)[None, :]
+                  & (torch.rand(r, c, generator=g) > 0.5))
+            b, e = assign._build_benefit(cost.to(dev), ok.to(dev), n, 1e-2)
+            bens.append(b)
+            eps0.append(e)
+            costs.append(cost)
+            valids.append(ok)
+        return (torch.stack(bens).contiguous(), torch.stack(eps0).contiguous(),
+                torch.tensor([bool(v.any()) for v in valids], device=dev), costs, valids)
+
+    kw = dict(eps_scale=0.2, eps_min=1e-2, max_iters=4096)
+    auc_err = 0.0
+    for count, n, seed in ((256, 64, 3), (8, 128, 4)):
+        ben, eps0, feas, costs, valids = problems(count, n - 7, n - 20, n, seed)
+        feas[0] = False                        # one infeasible problem per batch
+        got = assign.auction_kernel_cuda(ben, eps0, feas, **kw)
+        want, rounds, bids = assign.auction_kernel_reference(ben, eps0, feas, **kw)
+        torch.cuda.synchronize()
+        auc_err = max(auc_err, float((got - want).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"auction kernel != plain at n={n}: "
+                                 f"{int((got != want).any(dim=1).sum())} problems differ")
+        if not (got[0] == -1).all():
+            raise AssertionError("infeasible problem was not skipped")
+        import numpy as np
+        from scipy.optimize import linear_sum_assignment
+        for p in range(1, min(9, count)):     # optimality sample vs scipy
+            cost, ok = costs[p].numpy(), valids[p].numpy()
+            rtc = got[p, : cost.shape[0]].cpu().numpy()
+            pairs_ok = [(i, j) for i, j in enumerate(rtc) if 0 <= j < cost.shape[1] and ok[i, j]]
+            sub = np.where(ok, cost, 1e6)
+            ri, ci = linear_sum_assignment(sub)
+            feasible = sub[ri, ci] < 5e5
+            if len(pairs_ok) != int(feasible.sum()):
+                raise AssertionError(f"auction cardinality {len(pairs_ok)} != scipy {int(feasible.sum())}")
+            total = sum(cost[i, j] for i, j in pairs_ok)
+            if total > sub[ri, ci][feasible].sum() + n * 1e-2 + 1e-4:
+                raise AssertionError(f"auction cost {total} exceeds scipy + n*eps_min")
+        log(f"[1] auction kernel == plain on {count} problems at n={n}; "
+            f"scipy bound holds on {min(8, count - 1)}; rounds median {int(rounds[1:].median())}, "
+            f"bids median {int(bids[1:].median())}")
+        if n == 64:
+            batch = (ben, eps0, feas, rounds, bids)
+
+    ben, eps0, feas, rounds, bids = batch
+    batch_ms = cuda_time_ms(lambda: assign.auction_kernel_cuda(ben, eps0, feas, **kw), reps=20)
+    # the main path launches one n=64 problem at a time: time 20 single launches
+    singles = [(ben[p:p + 1], eps0[p:p + 1], feas[p:p + 1]) for p in range(1, 21)]
+
+    def run_singles(fn):
+        for args in singles:
+            fn(*args, **kw)
+
+    auc_ms = cuda_time_ms(lambda: run_singles(assign.auction_kernel_cuda), reps=20) / 20
+    auc_plain_ms = cuda_time_ms(lambda: run_singles(assign.auction_kernel_reference),
+                                reps=3, warmup=1) / 20
+    n = ben.shape[-1]
+    # Only unassigned rows bid. Per bid: the row's scan of n entries (1 sub,
+    # 2 compares each), 2 operations for the bid itself and 2 compares where
+    # its column takes the highest bid.
+    bids20 = float(bids[1:21].double().mean())
+    auc_bound, auc_by = bound(n * n * 4 + 4 + 1 + n * 4, (3 * n + 4) * bids20)
+    log(f"[1] auction single n=64 launch (main-path shape, mean of 20 problems; {card}): "
+        f"kernel {auc_ms:.4f} ms, plain {auc_plain_ms:.2f} ms, bound {auc_bound:.7f} ms "
+        f"({auc_by}; {float(rounds[1:21].double().mean()):.1f} rounds, {bids20:.1f} bids "
+        f"per problem); batch of 256 in one launch {batch_ms:.4f} ms (median of 20)")
+    log(f"[1] launches in phase 1 (comparisons and timing, not the main path): "
+        f"nms {nms.nms_mask_cuda.launches}, auction {assign.auction_kernel_cuda.launches}")
+    return {
+        "nms_mask": dict(max_abs_err=nms_err, ms=nms_ms, plain_ms=nms_plain_ms,
+                         bound_ms=nms_bound, bound_by=nms_by),
+        "auction": dict(max_abs_err=auc_err, ms=auc_ms, plain_ms=auc_plain_ms,
+                        bound_ms=auc_bound, bound_by=auc_by),
+    }
+
+
+# ----------------------------------------------------------------- phase 2
+
+def records_to_frames(np, records, num_frames):
+    ids = {}
+    frames = [([], []) for _ in range(num_frames)]
+    for r in records:
+        ids.setdefault(r.object_id, len(ids))
+        frames[r.timestamp_micros][0].append(ids[r.object_id])
+        frames[r.timestamp_micros][1].append(list(r.to_xyxy()))
+    return [(np.asarray(i, np.int64), np.asarray(b, float).reshape(len(i), 4))
+            for i, b in frames]
+
+
+def phase_fixtures(np, torch, nms, assign):
+    from waymo_2d_tracking_tpu_torch.config import (
+        Config, DetectorConfig, PipelineConfig, TrackerConfig,
+    )
+    from waymo_2d_tracking_tpu_torch.data.synthetic import (
+        SyntheticClipConfig, render_video_clip,
+    )
+    from waymo_2d_tracking_tpu_torch.eval.mot import evaluate_mot, gt_to_frames
+    from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentFrames, SegmentPipeline
+    from waymo_2d_tracking_tpu_torch.weights import fixture_state_dict
+
+    nms.nms_mask_cuda.launches = 0
+    assign.auction_kernel_cuda.launches = 0
+
+    def run(det_kw, clip, state_dict, **trk_kw):
+        frames, gt = render_video_clip(clip)
+        cfg = Config(detector=DetectorConfig(**det_kw),
+                     tracker=TrackerConfig(**{**PIXELS_TRK, **trk_kw}),
+                     pipeline=PipelineConfig(chunk_frames=16, interp_max_gap=0))
+        pipe = SegmentPipeline(cfg, state_dict, device="cuda")
+        records, _ = pipe.run_segment(SegmentFrames(
+            "fixture", 1, list(range(clip.num_frames)), frames))
+        return evaluate_mot(gt_to_frames(gt), records_to_frames(np, records, clip.num_frames))
+
+    sd = fixture_state_dict("pixels_detector")
+    m = run(PIXELS_DET, SyntheticClipConfig(num_frames=80, num_objects=8,
+                                            image_size=(1024, 1536), seed=5),
+            sd, birth_iou_threshold=0.3)
+    log(f"[2] seed-5 clip: {json.dumps(m.as_dict())}")
+    if not (m.mota >= 0.78 and m.idf1 >= 0.87 and m.num_idsw <= 6 and m.mostly_tracked >= 7):
+        raise AssertionError("seed-5 floors (0.78 / 0.87 / <=6 / >=7) missed")
+    m = run(PIXELS_DET, SyntheticClipConfig(num_frames=80, num_objects=14,
+                                            image_size=(1024, 1536), seed=11),
+            sd, birth_iou_threshold=0.3)
+    log(f"[2] dense clip: {json.dumps(m.as_dict())}")
+    if not (m.mota >= 0.42 and m.idf1 >= 0.66 and m.num_idsw <= 7):
+        raise AssertionError("dense-clip floors (0.42 / 0.66 / <=7) missed")
+
+    reid_det = {**PIXELS_DET, "embed_dim": 32}
+    clip = SyntheticClipConfig(num_frames=100, num_objects=6, image_size=(1024, 1536),
+                               seed=29, occlusion_gap=(30, 52), texture_amp=0.25)
+    sd = fixture_state_dict("pixels_detector_reid")
+    base = dict(embed_dim=32, max_lost_age=30, birth_iou_threshold=0.3)
+    off = run(reid_det, clip, sd, **base)
+    on = run(reid_det, clip, sd, **base, reid_recovery=True, appearance_gate=0.3,
+             gallery_size=4)
+    log(f"[2] reid recovery off idf1 {off.idf1:.4f} idsw {off.num_idsw}; "
+        f"on idf1 {on.idf1:.4f} idsw {on.num_idsw}")
+    if not (on.idf1 >= off.idf1 + 0.05 and on.num_idsw <= off.num_idsw):
+        raise AssertionError("ReID recovery gain (+0.05 IDF1) missed")
+    launches = (nms.nms_mask_cuda.launches, assign.auction_kernel_cuda.launches)
+    log(f"[2] kernel launches in the fixture phase: nms {launches[0]}, auction {launches[1]}")
+    if min(launches) == 0:
+        raise AssertionError("a kernel did not run in the fixture phase")
+
+
+# ----------------------------------------------------------------- phase 3
+
+def phase_headline(np, torch, nms, assign, card):
+    from waymo_2d_tracking_tpu_torch.config import Config, _update
+    from waymo_2d_tracking_tpu_torch.data.synthetic import (
+        SyntheticClipConfig, render_video_clip,
+    )
+    from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentFrames, SegmentPipeline
+    from waymo_2d_tracking_tpu_torch.tracker import init_state, track_segment
+
+    cfg = _update(Config(), {**HEADLINE, "pipeline": {**HEADLINE["pipeline"],
+                                                      "decode_scale_denom": 1}})
+    chunk = cfg.pipeline.chunk_frames
+    t0 = time.perf_counter()
+    frames, _ = render_video_clip(
+        SyntheticClipConfig(num_frames=3 * chunk, num_objects=12, seed=3),
+        render_hw=(640, 960))
+    log(f"[3] rendered {frames.shape[0]} frames at 640x960 on the host in "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    pipe = SegmentPipeline(cfg, device="cuda", seed=0)
+    warm = SegmentFrames("warmup", 1, list(range(chunk)), frames[:chunk])
+    pipe.run_segment(warm)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path, three times: launch counts are set to 0 just before each
+    # run and read just after it; frames/s is the host's wall time per run
+    seg = SegmentFrames("headline", 1, list(range(2 * chunk)), frames[chunk:])
+    fps_runs, launch_runs = [], []
+    for _ in range(3):
+        nms.nms_mask_cuda.launches = 0
+        assign.auction_kernel_cuda.launches = 0
+        t0 = time.perf_counter()
+        records, stats = pipe.run_segment(seg)
+        wall = time.perf_counter() - t0
+        launch_runs.append({"nms_mask": nms.nms_mask_cuda.launches,
+                            "auction": assign.auction_kernel_cuda.launches})
+        fps_runs.append(seg.num_frames / wall)
+    launches = launch_runs[0]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[3] headline main path, 3 runs of {seg.num_frames} frames: frames/s "
+        f"{json.dumps(fps_runs)} ({card}); peak device memory {peak_gb:.2f} GB; "
+        f"records {len(records)}; launches per run {json.dumps(launch_runs)}")
+    if min(min(lr.values()) for lr in launch_runs) == 0:
+        raise AssertionError(f"a kernel of the main path was not launched: {launch_runs}")
+
+    # split of a chunk into its stages with CUDA events, median of 3 chunks;
+    # a stage's time includes any wait for the host to enqueue it
+    runner = pipe.detector
+    stages = ("letterbox_ms", "detector_forward_ms",
+              "candidates_topk_nms_roi_align_reid_ms", "tracker_loop_ms")
+    split_runs = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        images, _ = pipe.preprocess(frames[:chunk], frames.shape[1:3])
+        ev[1].record()
+        head_out, p_feats = runner.forward(images)
+        ev[2].record()
+        dets = runner.postprocess(head_out, p_feats)
+        ev[3].record()
+        _, outs = track_segment(init_state(cfg.tracker, device="cuda"), dets, cfg.tracker)
+        ev[4].record()
+        ev[4].synchronize()
+        split_runs.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
+    split = {k: statistics.median(r[i] for r in split_runs) for i, k in enumerate(stages)}
+    log(f"[3] {chunk}-frame chunk split, median of 3 ({card}): {json.dumps(split)}; "
+        f"each run: {json.dumps(split_runs)}")
+
+    # device busy share, 3 chunks, each read from its own trace: the union of
+    # the device intervals (kernels, copies) over the span from the first
+    # device event to the last. The profiler's own host cost lengthens the
+    # span, so the idle share it gives is an upper estimate.
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    for rep in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            images, _ = pipe.preprocess(frames[:chunk], frames.shape[1:3])
+            dets_p = runner.detect(images)
+            with record_function("tracker_loop"):
+                track_segment(init_state(cfg.tracker, device="cuda"), dets_p, cfg.tracker)
+            torch.cuda.synchronize()
+        events = prof.events()
+        # device work only: record_function's range also shows on the device
+        # timeline as a user annotation
+        device = [e for e in events if e.device_type == DeviceType.CUDA
+                  and e.name != "tracker_loop" and not getattr(e, "is_user_annotation", False)]
+        spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+        if not spans:
+            log("[3] device busy share: not measured (the profiler recorded no device events)")
+            break
+        busy_us, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+        for s0, e0 in spans[1:]:
+            if s0 > cur_e:
+                busy_us += cur_e - cur_s
+                cur_s = s0
+            cur_e = max(cur_e, e0)
+        busy_us += cur_e - cur_s
+        span_us = max(e0 for _, e0 in spans) - spans[0][0]
+        device_ms, copies = {}, {}
+        for e in device:
+            device_ms[e.name] = device_ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            if "Memcpy" in e.name:
+                copies[e.name] = copies.get(e.name, 0) + 1
+        top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:6]
+        # runtime calls that copy or wait, issued inside the tracker loop
+        loop = [e for e in events if e.name == "tracker_loop"
+                and e.device_type == DeviceType.CPU][0].time_range
+        waits = {}
+        for e in events:
+            if (e.device_type == DeviceType.CPU and loop.start <= e.time_range.start <= loop.end
+                    and ("Synchronize" in e.name or "Memcpy" in e.name)):
+                waits[e.name] = waits.get(e.name, 0) + 1
+        log(f"[3] traced chunk {rep} ({card}): device busy {busy_us / 1e3:.3f} ms of a "
+            f"{span_us / 1e3:.3f} ms device span, idle share {1 - busy_us / span_us:.4f}; "
+            f"copy / wait runtime calls inside the tracker loop: {json.dumps(waits)}; "
+            f"device copies in the chunk: {json.dumps(copies)}; most device time (ms): "
+            + json.dumps([[k[:60], round(v, 3)] for k, v in top]))
+
+    # no synchronizing call inside the tracker loop: one that
+    # set_sync_debug_mode detects raises
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        track_segment(init_state(cfg.tracker, device="cuda"), dets[:16], cfg.tracker)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    log("[3] 16 tracker steps ran with torch.cuda.set_sync_debug_mode('error'): "
+        "no synchronizing call detected")
+
+    d = dets.to_numpy()
+    if d.boxes.shape != (chunk, cfg.detector.max_detections, 4) or \
+            d.embeds.shape != (chunk, cfg.detector.max_detections, cfg.detector.embed_dim):
+        raise AssertionError(f"headline detections have shapes {d.boxes.shape} {d.embeds.shape}")
+    if not (np.isfinite(d.boxes).all() and np.isfinite(d.scores).all()
+            and np.isfinite(d.embeds).all() and d.valid.any()):
+        raise AssertionError("headline detections are not finite or all invalid")
+    norms = np.linalg.norm(d.embeds[d.valid], axis=-1)
+    if not np.allclose(norms, 1.0, atol=1e-3):
+        raise AssertionError("headline ReID embeddings are not unit norm")
+    if not np.isfinite(outs.to_numpy().boxes).all():
+        raise AssertionError("headline track boxes are not finite")
+    log(f"[3] headline outputs finite; valid detections per frame "
+        f"{d.valid.sum(1).mean():.1f}, max score {d.scores.max():.3f} (random weights)")
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs a CUDA card", file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import numpy as np
+
+    from waymo_2d_tracking_tpu_torch.ops import _cuda, assign, nms
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    name = torch.cuda.get_device_name(0)
+    log(f"[0] {smi}")
+    log(f"[0] torch {torch.__version__} cuda {torch.version.cuda}; device {name}; "
+        f"count {torch.cuda.device_count()}")
+    t0 = time.perf_counter()
+    _cuda.build_all()
+    log(f"[0] built {', '.join(_cuda.KERNELS)} with nvcc in "
+        f"{time.perf_counter() - t0:.1f} s ({smi})")
+    for kname, text in _cuda.BUILD_LOG.items():
+        for line in text.splitlines():
+            if "registers" in line or "smem" in line or "error" in line.lower():
+                log(f"[0] ptxas {kname}: {line.strip()}")
+
+    kern = phase_kernels(torch, nms, assign, smi)
+    phase_fixtures(np, torch, nms, assign)
+    launches = phase_headline(np, torch, nms, assign, smi)
+
+    sources = {
+        "nms_mask": ("waymo_2d_tracking_tpu_torch/csrc/nms.cu",
+                     "waymo_2d_tracking_tpu/ops/nms.py:38"),
+        "auction": ("waymo_2d_tracking_tpu_torch/csrc/auction.cu",
+                    "waymo_2d_tracking_tpu/ops/assign.py:112"),
+    }
+    record = {"kernels": [
+        {"name": k, "route": "cuda", "source": src, "replaces": rep,
+         "launches": launches[k], **kern[k], "library_ms": None}
+        for k, (src, rep) in sources.items()
+    ]}
+    log(smi)
+    log(json.dumps(record))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

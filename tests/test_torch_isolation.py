@@ -1,0 +1,149 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, its
+config copy cannot drift from the JAX one, ``chip_smoke.py``'s headline dict
+is ``configs/headline.yaml``, and nothing falls back to the CPU on its own."""
+import ast
+import dataclasses
+import importlib.util
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import waymo_2d_tracking_tpu.config as jax_config
+import waymo_2d_tracking_tpu_torch
+from waymo_2d_tracking_tpu_torch import config as port_config
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG_DIR = os.path.dirname(waymo_2d_tracking_tpu_torch.__file__)
+
+
+def _port_modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages([PKG_DIR], "waymo_2d_tracking_tpu_torch.")
+    )
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_port_imports_no_jax_in_a_fresh_process():
+    mods = ["waymo_2d_tracking_tpu_torch"] + _port_modules()
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "importlib.import_module('chip_smoke')\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'waymo_2d_tracking_tpu'))\n"
+        "assert not bad, bad\n"
+        "print(len(sys.modules))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert len(mods) >= 25
+
+
+def test_sources_never_name_the_jax_package():
+    pattern = re.compile(r"waymo_2d_tracking_tpu(?!_torch)")
+    hits = []
+    for dirpath, _, files in os.walk(PKG_DIR):
+        for f in files:
+            if f.endswith((".py", ".cu", ".cuh")):
+                path = os.path.join(dirpath, f)
+                with open(path) as fh:
+                    for n, line in enumerate(fh, 1):
+                        if pattern.search(line):
+                            hits.append(f"{path}:{n}: {line.strip()}")
+    assert not hits, hits
+    tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
+    for node in ast.walk(tree):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "jaxlib", "flax",
+                                              "waymo_2d_tracking_tpu"), name
+
+
+def _fields(cls):
+    out = {}
+    for f in dataclasses.fields(cls):
+        if f.default is not dataclasses.MISSING:
+            out[f.name] = f.default
+        elif f.default_factory is not dataclasses.MISSING:
+            out[f.name] = dataclasses.asdict(f.default_factory())
+        else:
+            out[f.name] = dataclasses.MISSING
+    return out
+
+
+@pytest.mark.parametrize("name", ["KalmanConfig", "TrackerConfig", "DetectorConfig",
+                                  "PipelineConfig", "TrainConfig", "Config"])
+def test_config_copy_equals_jax(name):
+    assert _fields(getattr(port_config, name)) == _fields(getattr(jax_config, name))
+
+
+def test_headline_dict_equals_yaml():
+    smoke = _chip_smoke()
+    got = port_config._update(port_config.Config(), smoke.HEADLINE)
+    want = jax_config.load_config(os.path.join(ROOT, "configs", "headline.yaml"))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert dataclasses.asdict(port_config.load_config(
+        os.path.join(ROOT, "configs", "headline.yaml"))) == dataclasses.asdict(want)
+
+
+def test_entry_points_need_a_card_unless_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from waymo_2d_tracking_tpu_torch.config import Config, TrackerConfig
+    from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
+    from waymo_2d_tracking_tpu_torch.ops.assign import auction_kernel_cuda
+    from waymo_2d_tracking_tpu_torch.ops.nms import nms_mask_cuda
+    from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentPipeline
+    from waymo_2d_tracking_tpu_torch.tracker import Tracker, init_state
+
+    small = dict(backbone="resnet18slim", image_size=(64, 64), fpn_channels=32,
+                 fpn_levels=(3, 4, 5), head_depth=1, head_channels=32, embed_dim=0)
+    cfg = port_config._update(Config(), {"detector": small})
+    for make in (lambda: Tracker(TrackerConfig()), lambda: init_state(TrackerConfig()),
+                 lambda: DetectorRunner(cfg.detector), lambda: SegmentPipeline(cfg)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    Tracker(TrackerConfig(), device="cpu").init()
+    SegmentPipeline(cfg, device="cpu")
+    # the kernel wrappers never run their plain versions for a CPU tensor
+    with pytest.raises(ValueError, match="CUDA"):
+        nms_mask_cuda(torch.zeros(1, 4, 4), torch.ones(1, 4, dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA"):
+        auction_kernel_cuda(torch.zeros(1, 64, 64), torch.ones(1), torch.ones(1, dtype=torch.bool),
+                            eps_scale=0.2, eps_min=1e-2, max_iters=10)
+
+
+def test_later_slices_raise_not_implemented():
+    from waymo_2d_tracking_tpu_torch.config import Config
+    from waymo_2d_tracking_tpu_torch.models.detector import Detector
+    from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentPipeline
+
+    base = Config()
+    for overrides, what in (
+        ({"detector": {"quant": "int8"}}, "int8"),
+        ({"detector": {"head_family": "centernet"}}, "centernet"),
+    ):
+        with pytest.raises(NotImplementedError, match=what):
+            Detector(port_config._update(base, overrides).detector)
+    for overrides, what in (({"pipeline": {"tta_flip": True}}, "augmentation"),
+                            ({"pipeline": {"interp_max_gap": 2}}, "interp_max_gap")):
+        with pytest.raises(NotImplementedError, match=what):
+            SegmentPipeline(port_config._update(base, overrides), device="cpu")

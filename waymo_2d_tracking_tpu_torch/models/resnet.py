@@ -1,0 +1,156 @@
+"""ResNet backbones (counterpart of ``models/resnet.py``).
+
+Convolutions run NCHW inside (on the card the NHWC input, permuted, is
+channels-last in memory, which is what cuDNN wants); the detector converts at
+its boundary. Padding is explicit, as in the JAX modules, so weights map one
+to one. Submodule names follow the flax names (``stem_conv``, ``stem_bn``,
+``stage{s}_block{b}``, ``conv1``, ``bn1``, ``downsample_conv``...), which is
+what ``weights.from_flax_numpy`` relies on.
+
+Returns the C2..C5 features {2: /4, 3: /8, 4: /16, 5: /32}, NCHW.
+"""
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _bn(c: int) -> nn.BatchNorm2d:
+    return nn.BatchNorm2d(c, eps=1e-5)
+
+
+class Bottleneck(nn.Module):
+    """1x1 -> 3x3 -> 1x1 bottleneck with BN and projection shortcut."""
+
+    expansion = 4
+
+    def __init__(self, in_ch: int, features: int, stride: int = 1):
+        super().__init__()
+        out = features * 4
+        self.conv1 = nn.Conv2d(in_ch, features, 1, bias=False)
+        self.bn1 = _bn(features)
+        self.conv2 = nn.Conv2d(features, features, 3, stride, padding=1, bias=False)
+        self.bn2 = _bn(features)
+        self.conv3 = nn.Conv2d(features, out, 1, bias=False)
+        self.bn3 = _bn(out)
+        if in_ch != out or stride != 1:
+            self.downsample_conv = nn.Conv2d(in_ch, out, 1, stride, bias=False)
+            self.downsample_bn = _bn(out)
+        else:
+            self.downsample_conv = None
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = F.relu(self.bn2(self.conv2(y)))
+        y = self.bn3(self.conv3(y))
+        residual = x
+        if self.downsample_conv is not None:
+            residual = self.downsample_bn(self.downsample_conv(x))
+        return F.relu(y + residual)
+
+
+class BasicBlock(nn.Module):
+    """3x3 -> 3x3 basic residual block (ResNet-18/34 family)."""
+
+    expansion = 1
+
+    def __init__(self, in_ch: int, features: int, stride: int = 1):
+        super().__init__()
+        self.conv1 = nn.Conv2d(in_ch, features, 3, stride, padding=1, bias=False)
+        self.bn1 = _bn(features)
+        self.conv2 = nn.Conv2d(features, features, 3, 1, padding=1, bias=False)
+        self.bn2 = _bn(features)
+        if in_ch != features or stride != 1:
+            self.downsample_conv = nn.Conv2d(in_ch, features, 1, stride, bias=False)
+            self.downsample_bn = _bn(features)
+        else:
+            self.downsample_conv = None
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        residual = x
+        if self.downsample_conv is not None:
+            residual = self.downsample_bn(self.downsample_conv(x))
+        return F.relu(y + residual)
+
+
+def space_to_depth_2x2(x: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, C) -> (N, H/2, W/2, 4C), channel order (2a+b)*C + c for
+    pixel offsets (a, b) in the 2x2 patch."""
+    n, h, w, c = x.shape
+    x = x.reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(n, h // 2, w // 2, 4 * c)
+
+
+class ResNet(nn.Module):
+    """ResNet-v1. block='bottleneck' (50/101) or 'basic' (18/34).
+
+    stem='conv7' is the 7x7/s2 stem; stem='s2d' is the weight-equivalent
+    space-to-depth 4x4/s1 form, padded (2, 1) on both axes like the JAX
+    module (asymmetric, so the pad is explicit and the conv has none).
+    """
+
+    def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), width: int = 64,
+                 block: str = "bottleneck", stem: str = "conv7"):
+        super().__init__()
+        self.stem = stem
+        if stem == "s2d":
+            self.stem_conv = nn.Conv2d(12, width, 4, 1, bias=False)
+        else:
+            self.stem_conv = nn.Conv2d(3, width, 7, 2, padding=3, bias=False)
+        self.stem_bn = _bn(width)
+        block_cls = Bottleneck if block == "bottleneck" else BasicBlock
+        self.stage_names = []
+        self.out_channels: Dict[int, int] = {}
+        in_ch = width
+        for stage, num_blocks in enumerate(stage_sizes):
+            features = width * (2 ** stage)
+            names = []
+            for b in range(num_blocks):
+                stride = 2 if (b == 0 and stage > 0) else 1
+                name = f"stage{stage + 1}_block{b}"
+                self.add_module(name, block_cls(in_ch, features, stride))
+                in_ch = features * block_cls.expansion
+                names.append(name)
+            self.stage_names.append(names)
+            self.out_channels[stage + 2] = in_ch
+
+    def forward(self, x_nhwc: torch.Tensor) -> Dict[int, torch.Tensor]:
+        if self.stem == "s2d":
+            x = space_to_depth_2x2(x_nhwc).permute(0, 3, 1, 2)
+            x = self.stem_conv(F.pad(x, (2, 1, 2, 1)))
+        else:
+            x = self.stem_conv(x_nhwc.permute(0, 3, 1, 2))
+        x = F.relu(self.stem_bn(x))
+        x = F.max_pool2d(x, 3, 2, padding=1)
+        feats: Dict[int, torch.Tensor] = {}
+        for stage, names in enumerate(self.stage_names):
+            for name in names:
+                x = getattr(self, name)(x)
+            feats[stage + 2] = x
+        return feats
+
+
+def ResNet18(stem: str = "conv7") -> ResNet:
+    return ResNet(stage_sizes=(2, 2, 2, 2), width=64, block="basic", stem=stem)
+
+
+def ResNet34(stem: str = "conv7") -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), width=64, block="basic", stem=stem)
+
+
+def ResNet50(stem: str = "conv7") -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), width=64, stem=stem)
+
+
+def ResNet101(stem: str = "conv7") -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 23, 3), width=64, stem=stem)
+
+
+def ResNet18Slim(stem: str = "conv7") -> ResNet:
+    """Small twin for tests (1-block bottleneck stages, width 16)."""
+    return ResNet(stage_sizes=(1, 1, 1, 1), width=16, stem=stem)

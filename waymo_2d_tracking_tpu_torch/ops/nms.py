@@ -1,0 +1,129 @@
+"""Non-maximum suppression (counterpart of ``ops/nms.py``).
+
+``nms_mask_batched`` is the greedy keep-mask over score-sorted boxes. A CUDA
+tensor launches the hand-written kernel ``csrc/nms.cu`` (one CTA per image;
+it replaces the Pallas ``_nms_kernel``); a CPU tensor runs
+``nms_mask_reference``, the plain PyTorch version of the same function, as
+JAX on the CPU runs the Pallas kernel's semantics in interpret mode. Both are
+exact greedy NMS, bit for bit equal to the JAX kernel: the IoU is
+``inter / max(union, 1e-7)`` with ``union = area_i + area_j - inter``,
+every operation rounded on its own.
+
+``nms_batched`` is the full per-image sort -> suppress -> top-K selection.
+``lax.top_k`` returns equal values lowest index first; ``torch.topk`` does
+not promise that, so every top-k here is a stable descending sort.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from waymo_2d_tracking_tpu_torch.ops import _cuda
+from waymo_2d_tracking_tpu_torch.ops.iou import pairwise_iou
+
+MAX_N = 1024  # the kernel's shared-memory bitmask holds up to 1024 boxes
+
+
+def topk_stable(x: torch.Tensor, k: int):
+    """``lax.top_k`` over the last axis: descending, ties lowest index first."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def nms_mask_reference(boxes: torch.Tensor, valid: torch.Tensor,
+                       iou_threshold: float = 0.6) -> torch.Tensor:
+    """Plain PyTorch greedy NMS keep-mask, same contract as the kernel.
+
+    boxes (B, N, 4) f32 sorted by descending score, valid (B, N) bool.
+    Returns (B, N) bool. The walk is N sequential steps, vectorised over B.
+    """
+    b, n = valid.shape
+    thr = torch.tensor(iou_threshold, dtype=torch.float32)
+    boxes = boxes.float()
+    over = pairwise_iou(boxes, boxes) > thr.to(boxes.device)
+    over = torch.triu(over, diagonal=1)            # row i suppresses j > i
+    keep = torch.zeros((b, n), dtype=torch.bool, device=boxes.device)
+    removed = torch.zeros((b, n), dtype=torch.bool, device=boxes.device)
+    valid = valid.bool()
+    for i in range(n):
+        k = valid[:, i] & ~removed[:, i]
+        keep[:, i] = k
+        removed |= over[:, i, :] & k[:, None]
+    return keep
+
+
+def nms_mask_cuda(boxes: torch.Tensor, valid: torch.Tensor,
+                  iou_threshold: float = 0.6) -> torch.Tensor:
+    """Launch ``csrc/nms.cu``: boxes (B, N, 4) f32, valid (B, N) bool, both
+    contiguous CUDA tensors; N <= 1024. Returns the (B, N) bool keep-mask."""
+    if boxes.device.type != "cuda" or valid.device != boxes.device:
+        raise ValueError("nms_mask_cuda takes CUDA tensors on one device")
+    if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise TypeError("boxes must be float32 and valid bool")
+    if boxes.dim() != 3 or boxes.shape[-1] != 4 or valid.shape != boxes.shape[:2]:
+        raise ValueError(f"bad shapes boxes {tuple(boxes.shape)} valid {tuple(valid.shape)}")
+    if not (boxes.is_contiguous() and valid.is_contiguous()):
+        raise ValueError("boxes and valid must be contiguous")
+    b, n = valid.shape
+    if n > MAX_N:
+        raise ValueError(f"the NMS kernel takes at most {MAX_N} boxes per image, got {n}")
+    keep = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
+    lib = _cuda.library("nms")
+    with torch.cuda.device(boxes.device):
+        err = lib.w2t_nms_mask(
+            ctypes.c_void_p(boxes.data_ptr()), ctypes.c_void_p(valid.data_ptr()),
+            ctypes.c_void_p(keep.data_ptr()), ctypes.c_int(b), ctypes.c_int(n),
+            ctypes.c_float(iou_threshold),
+            ctypes.c_void_p(_cuda.stream_handle(boxes.device)),
+        )
+    _cuda.check(err, "nms")
+    nms_mask_cuda.launches += 1
+    return keep
+
+
+nms_mask_cuda.launches = 0
+
+
+def nms_mask_batched(boxes: torch.Tensor, valid: torch.Tensor,
+                     iou_threshold: float = 0.6) -> torch.Tensor:
+    """Greedy NMS keep-mask. boxes (B, N, 4) score-sorted, valid (B, N).
+
+    A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
+    """
+    boxes = boxes.float().contiguous()
+    valid = valid.bool().contiguous()
+    if boxes.device.type == "cuda":
+        return nms_mask_cuda(boxes, valid, iou_threshold)
+    return nms_mask_reference(boxes, valid, iou_threshold)
+
+
+def nms_batched(
+    boxes: torch.Tensor,
+    scores: torch.Tensor,
+    iou_threshold: float = 0.6,
+    max_outputs: int = 128,
+    score_threshold: float = 0.0,
+):
+    """Batched full NMS: per-image sort, suppress, return top ``max_outputs``.
+
+    boxes (B, N, 4), scores (B, N). Returns (boxes (B, K, 4), scores (B, K),
+    indices (B, K) into the input, valid (B, K) bool), K = max_outputs,
+    padded with zeros / -1.
+    """
+    n = boxes.shape[-2]
+    order_scores, order = topk_stable(scores, n)                    # (B, N)
+    sorted_boxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+    valid = order_scores > score_threshold
+    keep = nms_mask_batched(sorted_boxes, valid, iou_threshold)
+
+    sel_scores = torch.where(keep, order_scores,
+                             torch.full_like(order_scores, float("-inf")))
+    top_scores, sel = topk_stable(sel_scores, max_outputs)          # (B, K)
+    out_valid = torch.isfinite(top_scores)
+    picked = torch.gather(sorted_boxes, 1, sel[..., None].expand(-1, -1, 4))
+    out_boxes = torch.where(out_valid[..., None], picked, torch.zeros_like(picked))
+    out_scores = torch.where(out_valid, top_scores, torch.zeros_like(top_scores))
+    out_idx = torch.where(out_valid, torch.gather(order, 1, sel),
+                          torch.full_like(sel, -1))
+    return out_boxes, out_scores, out_idx, out_valid

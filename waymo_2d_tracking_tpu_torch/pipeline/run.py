@@ -1,0 +1,176 @@
+"""Per-segment orchestration (counterpart of ``pipeline/run.py``): the
+detect -> track hot path.
+
+Per chunk of ``chunk_frames`` frames: uint8 frames go to the device, are
+letterboxed there, run through the batched detector (NMS kernel inside), and
+the tracker steps through the chunk's frames with its state carried across
+chunks. Nothing in the chunk waits on the host; outputs come back once per
+chunk through ``RollingFetch``, which keeps at most ``prefetch_depth``
+chunks in flight.
+
+Later slices: test-time augmentation, JPEG ingest, the host ``cv2``
+downscale for ``decode_scale_denom > 1`` and output gap interpolation raise
+``NotImplementedError`` here; ``run_segments`` (manifest and gallery
+sidecar) is not ported yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from waymo_2d_tracking_tpu_torch.config import Config
+from waymo_2d_tracking_tpu_torch.data.preprocess import letterbox_batch
+from waymo_2d_tracking_tpu_torch.io_out import submission as subm
+from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
+from waymo_2d_tracking_tpu_torch.tracker import init_state, track_segment
+from waymo_2d_tracking_tpu_torch.types import Detections, TrackOutputs
+
+
+@dataclasses.dataclass
+class SegmentFrames:
+    """A segment's frames for one camera, host-side: (T, H, W, 3) uint8
+    frames, already decoded (JPEG ingest is a later slice of the port)."""
+
+    context_name: str
+    camera_name: int
+    timestamps: Sequence[int]
+    frames: np.ndarray
+
+    @property
+    def num_frames(self) -> int:
+        return len(self.timestamps)
+
+    def source_hw(self) -> Tuple[int, int]:
+        return tuple(self.frames.shape[1:3])
+
+    def chunk_iter(self, chunk: int, scale_denom: int = 1) -> Iterator[np.ndarray]:
+        """Yield (chunk, H, W, 3) uint8 arrays; the last chunk is padded by
+        REPEATING the final real frame, not zeros: the tracker treats pad
+        frames as real ones, and a blank tail longer than max_age would age
+        out every live track. Pad-frame outputs are trimmed by the caller."""
+        if scale_denom > 1:
+            raise NotImplementedError(
+                "decode_scale_denom > 1 on pre-decoded frames needs the host "
+                "cv2 downscale, a later slice of the port; feed frames at the "
+                "decoded size with decode_scale_denom=1")
+        for start in range(0, self.num_frames, chunk):
+            block = self.frames[start:start + chunk]
+            if block.shape[0] < chunk:
+                pad = chunk - block.shape[0]
+                block = np.concatenate([block, np.repeat(block[-1:], pad, axis=0)])
+            yield block
+
+
+class RollingFetch:
+    """Bounded window of chunk outputs still on the device: once more than
+    ``depth`` chunks are queued, the oldest is copied to the host (which
+    waits for it), so the host never runs unboundedly ahead of the card."""
+
+    def __init__(self, depth: int = 2):
+        self.depth = max(int(depth), 1)
+        self._dev: List = []
+        self._host: List = []
+
+    def push(self, outputs) -> None:
+        self._dev.append(outputs)
+        if len(self._dev) > self.depth:
+            self._host.append(self._dev.pop(0).to_numpy())
+
+    def finish(self) -> List:
+        self._host.extend(o.to_numpy() for o in self._dev)
+        self._dev = []
+        return self._host
+
+
+def _tta_active(p) -> bool:
+    return bool(p.tta_flip) or tuple(p.tta_scales) != (1.0,)
+
+
+class SegmentPipeline:
+    """Detector + tracker on ``device``, reusable across segments.
+
+    ``state_dict``: detector weights (``weights.from_flax_numpy``); None
+    draws seeded random weights (``seed``).
+    """
+
+    def __init__(self, cfg: Config, state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                 device="cuda", seed: int = 0):
+        if _tta_active(cfg.pipeline):
+            raise NotImplementedError(
+                "test-time augmentation (pipeline/tta.py) is not ported yet; "
+                "it is a later slice of the port")
+        if cfg.pipeline.interp_max_gap > 0:
+            raise NotImplementedError(
+                "pipeline.interp_max_gap > 0 needs io_out/postprocess.py, "
+                "which is not ported yet (a later slice of the port)")
+        self.cfg = cfg
+        self.detector = DetectorRunner(cfg.detector, state_dict, device=device, seed=seed)
+        self.device = self.detector.device
+        self.last_state = None
+
+    def preprocess(self, frames_u8: np.ndarray, src_hw):
+        """Host uint8 chunk -> letterboxed images on the device, scale."""
+        frames = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(self.device)
+        return letterbox_batch(frames, src_hw, self.cfg.detector.image_size)
+
+    def run_segment(
+        self, segment: SegmentFrames, detections_only: bool = False,
+    ) -> Tuple[List[subm.TrackRecord], dict]:
+        """Full detect -> track over one camera's segment. Returns (records,
+        stats); the final track table is kept in ``last_state`` (numpy)."""
+        cfg = self.cfg
+        chunk = cfg.pipeline.chunk_frames
+        sd = cfg.pipeline.decode_scale_denom
+        t_total = segment.num_frames
+        src_hw = segment.source_hw()
+
+        state = init_state(cfg.tracker, device=self.device)
+        self.last_state = None
+        scale = 1.0
+        t0 = time.perf_counter()
+        fetcher = RollingFetch(depth=cfg.pipeline.prefetch_depth)
+        for block in segment.chunk_iter(chunk, scale_denom=sd):
+            images, scale = self.preprocess(block, src_hw)
+            dets = self.detector.detect(images)
+            if detections_only:
+                fetcher.push(dets)
+            else:
+                state, outputs = track_segment(state, dets, cfg.tracker)
+                fetcher.push(outputs)
+        outputs_host = fetcher.finish()
+        if not detections_only:
+            self.last_state = state.to_numpy()
+        wall = time.perf_counter() - t0
+
+        record_type = Detections if detections_only else TrackOutputs
+        stacked = record_type(**{
+            f.name: np.concatenate([getattr(o, f.name) for o in outputs_host])[:t_total]
+            for f in dataclasses.fields(record_type)
+        })
+        total_scale = float(scale) / sd
+        if detections_only:
+            records = subm.records_from_detections(
+                stacked, segment.context_name, segment.timestamps,
+                segment.camera_name, scale=total_scale,
+            )
+        else:
+            records = subm.records_from_track_outputs(
+                stacked, segment.context_name, segment.timestamps,
+                segment.camera_name, scale=total_scale,
+                interp_max_gap=cfg.pipeline.interp_max_gap,
+            )
+        stats = {
+            "context": segment.context_name,
+            "camera": segment.camera_name,
+            "frames": t_total,
+            "tracks": len({r.object_id for r in records}),
+            "records": len(records),
+            "wall_s": round(wall, 4),
+            "fps": round(t_total / wall, 1) if wall > 0 else None,
+        }
+        return records, stats
+
