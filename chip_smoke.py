@@ -5,23 +5,34 @@
 
 Phases (any failed check raises, and the script exits non-zero):
 
-0. the card (``nvidia-smi`` name and power limit), then ``nvcc`` builds both
-   CUDA kernels from ``waymo_2d_tracking_tpu_torch/csrc/`` in parallel;
+0. the card (``nvidia-smi`` name and power limit), then ``nvcc`` builds all
+   four CUDA kernels from ``waymo_2d_tracking_tpu_torch/csrc/`` in parallel;
 1. each kernel against its plain PyTorch version on the card at the main
-   path's shapes -- NMS keep-masks bit-equal at (B=128, N=1024) with class
-   offsets plus the chain and invalid cases; auction row -> col equal on a
-   batch of 256 tracker-like problems at n=64 and a few at n=128, and within
-   n * eps_min of scipy on a sample -- with CUDA-event times;
+   path's shapes, with CUDA-event times: NMS keep-masks bit-equal at
+   (B=128, N=1024) with class offsets plus the chain and invalid cases;
+   auction row -> col equal on a batch of 256 tracker-like problems at n=64
+   and a few at n=128, and within n * eps_min of scipy on a sample; the top-k
+   threshold bit-equal at the headline's P3 size (N=14112, k=512, one vector
+   and the chunk's 128 at once), at N=28800, on ties and on the
+   large-magnitude snap case, timed beside ``torch.kthvalue``; RoIAlign at
+   the headline ReID shape (P3 56x84x128, 64 RoIs, 7x7, sampling 2) within
+   1e-5 in float32 and one bf16 ulp in bfloat16, on boxes partly outside the
+   map and on a 2-row map, timed beside the matmul form for one image and for
+   a chunk of 128 images;
 2. the trained fixtures in float32 with TF32 off through the whole slice:
-   seed-5 and dense-clip MOTA/IDF1/IDSW floors and the ReID recovery gain,
-   with both kernel counters rising;
-3. the headline preset (``configs/headline.yaml``) at full width in bf16 with
-   seeded random weights, 3 runs of 2 chunks of 128 frames at 640x960 after
-   a warm-up chunk: frames/s and the launch counts of both kernels on each
-   main-path run; the split of a chunk into letterbox / detector forward /
-   candidates + NMS + RoIAlign + ReID / tracker loop (CUDA events); and, as a
-   separate measurement, the device's busy share of 3 traced chunks
-   (``torch.profiler``), each from its own trace.
+   seed-5 and dense-clip MOTA/IDF1/IDSW floors, the ReID recovery gain, and
+   the seed-5 clip with test-time augmentation (flip, scales 1.0 and 0.75)
+   against the JAX package's metrics, with the NMS and auction counters rising;
+3. three main paths at full width in bf16 with seeded random weights on
+   640x960 frames, each after a warm-up chunk, kernel counts set to 0 just
+   before each run and read just after: the headline preset
+   (``configs/headline.yaml``) and its CenterNet twin
+   (``configs/headline_centernet.yaml``), 3 runs of 2 chunks of 128 frames
+   each, and the headline with TTA, 2 runs of 1 chunk. For each: frames/s,
+   launch counts and the split of a chunk into letterbox / detector forward /
+   candidates + NMS + RoIAlign + ReID / tracker loop (CUDA events). For the
+   headline, as a separate measurement, the device's busy share of 3 traced
+   chunks (``torch.profiler``), each from its own trace.
 
 The last two lines are the kernels' JSON record and the device record. It
 imports no JAX and nothing of the JAX package.
@@ -67,8 +78,14 @@ HEADLINE = {
     },
 }
 
+# configs/headline_centernet.yaml: the headline with the CenterNet head family
+HEADLINE_CENTERNET = {
+    **HEADLINE,
+    "detector": {**HEADLINE["detector"], "head_family": "centernet", "centernet_level": 3},
+}
+
 # Published H100 SXM peaks (dense): HBM bandwidth, and float32 outside the
-# tensor cores (both kernels do scalar f32 / integer work).
+# tensor cores (every kernel here does scalar f32 / integer work).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
 
@@ -83,6 +100,11 @@ PIXELS_TRK = dict(
     max_tracks=32, max_detections=32, embed_dim=0, n_init=2, max_age=5,
     iou_threshold=0.3, score_threshold=0.55, birth_score_threshold=0.65,
 )
+
+# The JAX package's metrics on the seed-5 clip with TTA (flip, scales 1.0 and
+# 0.75), chunk 16, on the CPU: tools/jax_reference_seed5_tta.py.
+SEED5_TTA_REF = {"mota": 0.45421903052064627, "idf1": 0.7574221578566256, "num_idsw": 9}
+SEED5_TTA_TOL = {"mota": 0.01, "idf1": 0.01, "num_idsw": 1}
 
 
 def log(*args):
@@ -245,14 +267,144 @@ def phase_kernels(torch, nms, assign, card):
         f"kernel {auc_ms:.4f} ms, plain {auc_plain_ms:.2f} ms, bound {auc_bound:.7f} ms "
         f"({auc_by}; {float(rounds[1:21].double().mean()):.1f} rounds, {bids20:.1f} bids "
         f"per problem); batch of 256 in one launch {batch_ms:.4f} ms (median of 20)")
-    log(f"[1] launches in phase 1 (comparisons and timing, not the main path): "
-        f"nms {nms.nms_mask_cuda.launches}, auction {assign.auction_kernel_cuda.launches}")
     return {
         "nms_mask": dict(max_abs_err=nms_err, ms=nms_ms, plain_ms=nms_plain_ms,
                          bound_ms=nms_bound, bound_by=nms_by),
         "auction": dict(max_abs_err=auc_err, ms=auc_ms, plain_ms=auc_plain_ms,
                         bound_ms=auc_bound, bound_by=auc_by),
     }
+
+
+def fcos_scores(torch, b: int, n_loc: int, seed: int):
+    """(b, n_loc * 3) candidate scores like the detector's per-level ones:
+    sqrt(sigmoid(class logit) * sigmoid(centerness logit)), random logits."""
+    g = torch.Generator().manual_seed(seed)
+    cls = torch.randn(b, n_loc, 3, generator=g) * 1.5 - 3.0
+    ctr = torch.randn(b, n_loc, 1, generator=g)
+    return torch.sqrt(torch.sigmoid(cls) * torch.sigmoid(ctr)).reshape(b, -1).contiguous()
+
+
+def phase_topk(torch, topk, card):
+    dev = torch.device("cuda")
+    k = 512
+    p3 = fcos_scores(torch, 128, 56 * 84, seed=6).to(dev)    # headline P3 of a chunk
+    big = fcos_scores(torch, 1, 80 * 120, seed=7).to(dev)    # N=28800 (ops/topk.py)
+    ties = (torch.round(p3[:1] * 64) / 64).contiguous()
+    snap = torch.tensor([[1e9, -1e9, 0.0, 1e-4, 1e-4, -3e8, 2e8]], device=dev)
+    err, rounds = 0.0, {}
+    for name, vec, kk in (("P3 N=14112", p3[:1], k), ("N=28800", big, k),
+                          ("ties", ties, k), ("snap", snap, 3)):
+        kth, cnt = topk.topk_threshold_cuda(vec, kk)
+        want, want_cnt, rounds[name] = topk.topk_threshold_reference(vec, kk, with_rounds=True)
+        torch.cuda.synchronize()
+        err = max(err, float((kth[0] - want).abs()))
+        if not (torch.equal(kth.view(torch.int32), want.reshape(1).view(torch.int32))
+                and int(cnt[0]) == int(want_cnt)):
+            raise AssertionError(f"top-k kernel != plain on {name}: {kth.tolist()} {cnt.tolist()} "
+                                 f"vs {float(want)!r} {int(want_cnt)}")
+    # the snap case's 3rd largest is 1e-4, found only after a restarted round
+    if float(kth[0]) != float(torch.tensor(1e-4)) or int(cnt[0]) != 2 or rounds["snap"] < 2:
+        raise AssertionError(f"snap case: kth {float(kth[0])!r}, {int(cnt[0])} above, "
+                             f"{rounds['snap']} rounds")
+    # the chunk's 128 P3 vectors in one launch, each held to the plain version
+    kth_b, cnt_b = topk.topk_threshold_cuda(p3, k)
+    for i in range(p3.shape[0]):
+        want, want_cnt = topk.topk_threshold_reference(p3[i], k)
+        if not (torch.equal(kth_b[i:i + 1].view(torch.int32), want.reshape(1).view(torch.int32))
+                and int(cnt_b[i]) == int(want_cnt)):
+            raise AssertionError(f"top-k kernel != plain on vector {i} of the batch")
+    n = p3.shape[1]
+    lib_kth = torch.kthvalue(p3, n - k + 1, dim=1).values
+    if not torch.equal(lib_kth, kth_b):
+        raise AssertionError("torch.kthvalue disagrees with the top-k kernel")
+
+    one = p3[:1]
+    ms = cuda_time_ms(lambda: topk.topk_threshold_cuda(one, k), reps=50)
+    batch_ms = cuda_time_ms(lambda: topk.topk_threshold_cuda(p3, k), reps=20)
+    plain_ms = cuda_time_ms(lambda: topk.topk_threshold_reference(one, k), reps=5, warmup=1)
+    lib_ms = cuda_time_ms(lambda: torch.kthvalue(one, n - k + 1, dim=1), reps=50)
+    lib_batch_ms = cuda_time_ms(lambda: torch.kthvalue(p3, n - k + 1, dim=1), reps=20)
+    # each round is 40 counting passes, one min pass and one count pass over
+    # the vector, after one min / max pass: one compare per element per pass
+    r = rounds["P3 N=14112"]
+    passes = 2 + r * (topk.ITERS + 2)
+    bnd, by = bound(n * 4 + 8, n * passes)
+    log(f"[1] top-k threshold kernel bit-equal to plain at N=14112 (k=512, the chunk's 128 "
+        f"vectors too), N=28800, ties and the snap case; rounds {json.dumps(rounds)} ({card}): "
+        f"one vector kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, torch.kthvalue {lib_ms:.4f} ms, "
+        f"bound {bnd:.7f} ms ({by}); 128 vectors in one launch {batch_ms:.4f} ms, "
+        f"torch.kthvalue over (128, {n}) {lib_batch_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                library_ms=lib_ms)
+
+
+def roi_boxes(torch, n: int, r: int, hw, seed: int):
+    """(n, r, 4) detection-like xyxy boxes in network pixels; boxes near the
+    border reach past it."""
+    g = torch.Generator().manual_seed(seed)
+    h, w = hw
+    centers = torch.rand(n, r, 2, generator=g) * torch.tensor([float(w), float(h)])
+    sizes = 8 + torch.rand(n, r, 2, generator=g) * 250
+    return torch.cat([centers - sizes / 2, centers + sizes / 2], dim=-1).contiguous()
+
+
+def phase_roi_align(torch, roi, card):
+    dev = torch.device("cuda")
+    kw = dict(spatial_scale=1.0 / 8, output_size=7, sampling_ratio=2)
+    g = torch.Generator().manual_seed(8)
+    # the headline's ReID pooling: P3 of a 448x672 input, 128 channels, 64 RoIs
+    feats = torch.randn(128, 56, 84, 128, generator=g).to(dev)
+    boxes = roi_boxes(torch, 128, 64, (448, 672), seed=9).to(dev)
+    outside = int(((boxes[..., :2] < 0).any(-1) | (boxes[..., 2] > 672) | (boxes[..., 3] > 448))
+                  .sum())
+
+    one_f, one_b = feats[:1].contiguous(), boxes[:1].contiguous()
+    err32 = float((roi.roi_align_cuda(one_f, one_b, **kw)
+                   - roi.roi_align_kernel_reference(one_f, one_b, **kw)).abs().max())
+    if err32 > 1e-5:
+        raise AssertionError(f"RoIAlign kernel f32 max |err| {err32} > 1e-5")
+    # bfloat16, the main path's feature dtype, over the whole chunk: both
+    # accumulate in f32 and round once, so they may differ by one bf16 ulp
+    fb = feats.bfloat16()
+    got = roi.roi_align_cuda(fb, boxes, **kw).float()
+    want = roi.roi_align_kernel_reference(fb, boxes, **kw).float()
+    diff = (got - want).abs()
+    err16 = float(diff.max())
+    if not (diff <= 2.0 ** -7 * want.abs() + 1e-6).all():
+        raise AssertionError(f"RoIAlign kernel bf16 differs by more than one ulp: {err16}")
+    equal16 = float((got == want).double().mean())
+    # the smallest map the kernel takes: 2 rows, boxes partly outside
+    small = torch.randn(3, 2, 5, 32, generator=g).to(dev)
+    sboxes = roi_boxes(torch, 3, 16, (16, 40), seed=10).to(dev)
+    err_small = float((roi.roi_align_cuda(small, sboxes, **kw)
+                       - roi.roi_align_kernel_reference(small, sboxes, **kw)).abs().max())
+    if err_small > 1e-5:
+        raise AssertionError(f"RoIAlign kernel on a 2-row map: max |err| {err_small}")
+    torch.cuda.synchronize()
+
+    one16, oneb = fb[:1], boxes[:1]
+    ms = cuda_time_ms(lambda: roi.roi_align_cuda(one16, oneb, **kw), reps=50)
+    plain_ms = cuda_time_ms(lambda: roi.roi_align_kernel_reference(one16, oneb, **kw), reps=10)
+    mm_ms = cuda_time_ms(lambda: roi.roi_align_batched(one16, oneb, **kw), reps=20)
+    chunk_ms = cuda_time_ms(lambda: roi.roi_align_cuda(fb, boxes, **kw), reps=10)
+    chunk_plain_ms = cuda_time_ms(lambda: roi.roi_align_kernel_reference(fb, boxes, **kw),
+                                  reps=3, warmup=1)
+    chunk_mm_ms = cuda_time_ms(lambda: roi.roi_align_batched(fb, boxes, **kw), reps=5)
+    # one image: read the bf16 map and the boxes once, write the bf16 output
+    # once; per output 4 s^2 products and sums of the y-blends and 4 s of the
+    # x-blend (40 at s = 2)
+    s_ = kw["sampling_ratio"]
+    outputs = 64 * 7 * 7 * 128
+    bnd, by = bound(one16.numel() * 2 + oneb.numel() * 4 + outputs * 2,
+                    outputs * s_ * (8 * s_ + 4))
+    log(f"[1] RoIAlign kernel vs plain at P3 56x84x128, 64 RoIs ({outside} of the chunk's "
+        f"8192 partly outside), 7x7, s=2: f32 max |err| {err32:.2e}, bf16 over the chunk max "
+        f"|err| {err16:.2e} ({equal16:.4f} of outputs bit-equal), 2-row map {err_small:.2e} "
+        f"({card}); one image bf16: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, matmul form "
+        f"{mm_ms:.4f} ms, bound {bnd:.6f} ms ({by}); chunk of 128 images x 64 RoIs bf16: kernel "
+        f"{chunk_ms:.4f} ms, plain {chunk_plain_ms:.2f} ms, matmul form {chunk_mm_ms:.4f} ms")
+    return dict(max_abs_err=max(err32, err16, err_small), ms=ms, plain_ms=plain_ms,
+                bound_ms=bnd, bound_by=by, library_ms=None)
 
 
 # ----------------------------------------------------------------- phase 2
@@ -282,11 +434,12 @@ def phase_fixtures(np, torch, nms, assign):
     nms.nms_mask_cuda.launches = 0
     assign.auction_kernel_cuda.launches = 0
 
-    def run(det_kw, clip, state_dict, **trk_kw):
+    def run(det_kw, clip, state_dict, pipe_kw=None, **trk_kw):
         frames, gt = render_video_clip(clip)
         cfg = Config(detector=DetectorConfig(**det_kw),
                      tracker=TrackerConfig(**{**PIXELS_TRK, **trk_kw}),
-                     pipeline=PipelineConfig(chunk_frames=16, interp_max_gap=0))
+                     pipeline=PipelineConfig(chunk_frames=16, interp_max_gap=0,
+                                             **(pipe_kw or {})))
         pipe = SegmentPipeline(cfg, state_dict, device="cuda")
         records, _ = pipe.run_segment(SegmentFrames(
             "fixture", 1, list(range(clip.num_frames)), frames))
@@ -299,6 +452,14 @@ def phase_fixtures(np, torch, nms, assign):
     log(f"[2] seed-5 clip: {json.dumps(m.as_dict())}")
     if not (m.mota >= 0.78 and m.idf1 >= 0.87 and m.num_idsw <= 6 and m.mostly_tracked >= 7):
         raise AssertionError("seed-5 floors (0.78 / 0.87 / <=6 / >=7) missed")
+    m = run(PIXELS_DET, SyntheticClipConfig(num_frames=80, num_objects=8,
+                                            image_size=(1024, 1536), seed=5),
+            sd, pipe_kw=dict(tta_flip=True, tta_scales=(1.0, 0.75)), birth_iou_threshold=0.3)
+    got = m.as_dict()
+    log(f"[2] seed-5 clip with TTA (flip, scales 1.0 and 0.75): {json.dumps(got)}; JAX "
+        f"reference {json.dumps(SEED5_TTA_REF)}, tolerance {json.dumps(SEED5_TTA_TOL)}")
+    if any(abs(got[key] - ref) > SEED5_TTA_TOL[key] for key, ref in SEED5_TTA_REF.items()):
+        raise AssertionError("seed-5 TTA metrics differ from the JAX reference")
     m = run(PIXELS_DET, SyntheticClipConfig(num_frames=80, num_objects=14,
                                             image_size=(1024, 1536), seed=11),
             sd, birth_iou_threshold=0.3)
@@ -326,80 +487,49 @@ def phase_fixtures(np, torch, nms, assign):
 
 # ----------------------------------------------------------------- phase 3
 
-def phase_headline(np, torch, nms, assign, card):
-    from waymo_2d_tracking_tpu_torch.config import Config, _update
-    from waymo_2d_tracking_tpu_torch.data.synthetic import (
-        SyntheticClipConfig, render_video_clip,
-    )
-    from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentFrames, SegmentPipeline
+def chunk_split(torch, pipe, frames, chunk, tta):
+    """A chunk's stages with CUDA events, median of 3 chunks; a stage's time
+    includes any wait for the host to enqueue it. Under TTA the forward
+    stage holds every view's forward and candidates, the next the union's
+    NMS, RoIAlign and ReID."""
+    from waymo_2d_tracking_tpu_torch.pipeline.tta import tta_candidates_batched
     from waymo_2d_tracking_tpu_torch.tracker import init_state, track_segment
 
-    cfg = _update(Config(), {**HEADLINE, "pipeline": {**HEADLINE["pipeline"],
-                                                      "decode_scale_denom": 1}})
-    chunk = cfg.pipeline.chunk_frames
-    t0 = time.perf_counter()
-    frames, _ = render_video_clip(
-        SyntheticClipConfig(num_frames=3 * chunk, num_objects=12, seed=3),
-        render_hw=(640, 960))
-    log(f"[3] rendered {frames.shape[0]} frames at 640x960 on the host in "
-        f"{time.perf_counter() - t0:.1f} s ({card})")
-    pipe = SegmentPipeline(cfg, device="cuda", seed=0)
-    warm = SegmentFrames("warmup", 1, list(range(chunk)), frames[:chunk])
-    pipe.run_segment(warm)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
-    # the main path, three times: launch counts are set to 0 just before each
-    # run and read just after it; frames/s is the host's wall time per run
-    seg = SegmentFrames("headline", 1, list(range(2 * chunk)), frames[chunk:])
-    fps_runs, launch_runs = [], []
-    for _ in range(3):
-        nms.nms_mask_cuda.launches = 0
-        assign.auction_kernel_cuda.launches = 0
-        t0 = time.perf_counter()
-        records, stats = pipe.run_segment(seg)
-        wall = time.perf_counter() - t0
-        launch_runs.append({"nms_mask": nms.nms_mask_cuda.launches,
-                            "auction": assign.auction_kernel_cuda.launches})
-        fps_runs.append(seg.num_frames / wall)
-    launches = launch_runs[0]
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[3] headline main path, 3 runs of {seg.num_frames} frames: frames/s "
-        f"{json.dumps(fps_runs)} ({card}); peak device memory {peak_gb:.2f} GB; "
-        f"records {len(records)}; launches per run {json.dumps(launch_runs)}")
-    if min(min(lr.values()) for lr in launch_runs) == 0:
-        raise AssertionError(f"a kernel of the main path was not launched: {launch_runs}")
-
-    # split of a chunk into its stages with CUDA events, median of 3 chunks;
-    # a stage's time includes any wait for the host to enqueue it
-    runner = pipe.detector
+    cfg, runner = pipe.cfg, pipe.detector
     stages = ("letterbox_ms", "detector_forward_ms",
               "candidates_topk_nms_roi_align_reid_ms", "tracker_loop_ms")
-    split_runs = []
+    runs = []
     for _ in range(3):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
         ev[0].record()
         images, _ = pipe.preprocess(frames[:chunk], frames.shape[1:3])
         ev[1].record()
         head_out, p_feats = runner.forward(images)
+        if tta:
+            cand = tta_candidates_batched(runner, images, scales=tuple(cfg.pipeline.tta_scales),
+                                          flip=cfg.pipeline.tta_flip, base_head_out=head_out)
         ev[2].record()
-        dets = runner.postprocess(head_out, p_feats)
+        dets = runner.select(cand, p_feats) if tta else runner.postprocess(head_out, p_feats)
         ev[3].record()
         _, outs = track_segment(init_state(cfg.tracker, device="cuda"), dets, cfg.tracker)
         ev[4].record()
         ev[4].synchronize()
-        split_runs.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
-    split = {k: statistics.median(r[i] for r in split_runs) for i, k in enumerate(stages)}
-    log(f"[3] {chunk}-frame chunk split, median of 3 ({card}): {json.dumps(split)}; "
-        f"each run: {json.dumps(split_runs)}")
+        runs.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
+    split = {k: statistics.median(r[i] for r in runs) for i, k in enumerate(stages)}
+    return split, runs, dets, outs
 
-    # device busy share, 3 chunks, each read from its own trace: the union of
-    # the device intervals (kernels, copies) over the span from the first
-    # device event to the last. The profiler's own host cost lengthens the
-    # span, so the idle share it gives is an upper estimate.
+
+def device_busy(torch, pipe, frames, chunk, card):
+    """Device busy share, 3 chunks, each read from its own trace: the union
+    of the device intervals (kernels, copies) over the span from the first
+    device event to the last. The profiler's own host cost lengthens the
+    span, so the idle share it gives is an upper estimate."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from waymo_2d_tracking_tpu_torch.tracker import init_state, track_segment
+
+    cfg, runner = pipe.cfg, pipe.detector
     for rep in range(3):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             images, _ = pipe.preprocess(frames[:chunk], frames.shape[1:3])
@@ -415,7 +545,7 @@ def phase_headline(np, torch, nms, assign, card):
         spans = sorted((e.time_range.start, e.time_range.end) for e in device)
         if not spans:
             log("[3] device busy share: not measured (the profiler recorded no device events)")
-            break
+            return
         busy_us, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
         for s0, e0 in spans[1:]:
             if s0 > cur_e:
@@ -444,32 +574,108 @@ def phase_headline(np, torch, nms, assign, card):
             f"device copies in the chunk: {json.dumps(copies)}; most device time (ms): "
             + json.dumps([[k[:60], round(v, 3)] for k, v in top]))
 
-    # no synchronizing call inside the tracker loop: one that
-    # set_sync_debug_mode detects raises
+
+def phase_main_path(np, torch, counters, card, name, preset, frames, chunks, runs,
+                    trace=False):
+    """One main path at full width: warm-up chunk, then ``runs`` runs of
+    ``chunks`` chunks with every kernel count set to 0 just before each run
+    and read just after; the chunk split; output checks. Returns the launch
+    counts of the first run."""
+    from waymo_2d_tracking_tpu_torch.config import Config, _update
+    from waymo_2d_tracking_tpu_torch.pipeline.run import (
+        SegmentFrames, SegmentPipeline, tta_active,
+    )
+    from waymo_2d_tracking_tpu_torch.tracker import init_state, track_segment
+
+    cfg = _update(Config(), {**preset, "pipeline": {**preset["pipeline"],
+                                                    "decode_scale_denom": 1}})
+    chunk = cfg.pipeline.chunk_frames
+    tta = tta_active(cfg.pipeline)
+    pipe = SegmentPipeline(cfg, device="cuda", seed=0)
+    pipe.run_segment(SegmentFrames("warmup", 1, list(range(chunk)), frames[:chunk]))
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        track_segment(init_state(cfg.tracker, device="cuda"), dets[:16], cfg.tracker)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    log("[3] 16 tracker steps ran with torch.cuda.set_sync_debug_mode('error'): "
-        "no synchronizing call detected")
+    torch.cuda.reset_peak_memory_stats()
+
+    # frames/s is the host's wall time per run
+    seg = SegmentFrames(name, 1, list(range(chunks * chunk)), frames[chunk:(chunks + 1) * chunk])
+    fps_runs, launch_runs = [], []
+    for _ in range(runs):
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        records, _ = pipe.run_segment(seg)
+        wall = time.perf_counter() - t0
+        launch_runs.append({k: fn.launches for k, fn in counters.items()})
+        fps_runs.append(seg.num_frames / wall)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[3] {name} main path, {runs} runs of {seg.num_frames} frames: frames/s "
+        f"{json.dumps(fps_runs)} ({card}); peak device memory {peak_gb:.2f} GB; "
+        f"records {len(records)}; launches per run {json.dumps(launch_runs)}")
+    if min(min(lr["nms_mask"], lr["auction"]) for lr in launch_runs) == 0:
+        raise AssertionError(f"{name}: a kernel of the main path was not launched: {launch_runs}")
+
+    split, split_runs, dets, outs = chunk_split(torch, pipe, frames, chunk, tta)
+    views = (2 if cfg.pipeline.tta_flip else 1) * len(cfg.pipeline.tta_scales)
+    log(f"[3] {name}: {chunk}-frame chunk split, median of 3 ({card}"
+        + (f"; {views} views, the forward stage holds every view's forward and candidates"
+           if tta else "") + f"): {json.dumps(split)}; each run: {json.dumps(split_runs)}")
+
+    if trace:
+        device_busy(torch, pipe, frames, chunk, card)
+        # no synchronizing call inside the tracker loop: one that
+        # set_sync_debug_mode detects raises
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            track_segment(init_state(cfg.tracker, device="cuda"), dets[:16], cfg.tracker)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        log(f"[3] {name}: 16 tracker steps ran with torch.cuda.set_sync_debug_mode('error'): "
+            "no synchronizing call detected")
 
     d = dets.to_numpy()
     if d.boxes.shape != (chunk, cfg.detector.max_detections, 4) or \
             d.embeds.shape != (chunk, cfg.detector.max_detections, cfg.detector.embed_dim):
-        raise AssertionError(f"headline detections have shapes {d.boxes.shape} {d.embeds.shape}")
+        raise AssertionError(f"{name} detections have shapes {d.boxes.shape} {d.embeds.shape}")
     if not (np.isfinite(d.boxes).all() and np.isfinite(d.scores).all()
-            and np.isfinite(d.embeds).all() and d.valid.any()):
-        raise AssertionError("headline detections are not finite or all invalid")
+            and np.isfinite(d.embeds).all()):
+        raise AssertionError(f"{name} detections are not finite")
+    # random weights: the FCOS heads pass the score threshold; the CenterNet
+    # heat may not, and then only the tracker's early exits run
+    if cfg.detector.head_family == "fcos" and not d.valid.any():
+        raise AssertionError(f"{name}: every detection is invalid")
     norms = np.linalg.norm(d.embeds[d.valid], axis=-1)
     if not np.allclose(norms, 1.0, atol=1e-3):
-        raise AssertionError("headline ReID embeddings are not unit norm")
+        raise AssertionError(f"{name} ReID embeddings are not unit norm")
     if not np.isfinite(outs.to_numpy().boxes).all():
-        raise AssertionError("headline track boxes are not finite")
-    log(f"[3] headline outputs finite; valid detections per frame "
-        f"{d.valid.sum(1).mean():.1f}, max score {d.scores.max():.3f} (random weights)")
-    return launches
+        raise AssertionError(f"{name} track boxes are not finite")
+    log(f"[3] {name} outputs finite; valid detections per frame {d.valid.sum(1).mean():.2f}, "
+        f"max score {d.scores.max():.3f} (random weights)")
+    del pipe
+    torch.cuda.empty_cache()
+    return launch_runs[0]
+
+
+def phase_headlines(np, torch, counters, card):
+    from waymo_2d_tracking_tpu_torch.data.synthetic import SyntheticClipConfig, render_video_clip
+
+    chunk = HEADLINE["pipeline"]["chunk_frames"]
+    t0 = time.perf_counter()
+    frames, _ = render_video_clip(
+        SyntheticClipConfig(num_frames=3 * chunk, num_objects=12, seed=3),
+        render_hw=(640, 960))
+    log(f"[3] rendered {frames.shape[0]} frames at 640x960 on the host in "
+        f"{time.perf_counter() - t0:.1f} s ({card})")
+    tta = {**HEADLINE, "pipeline": {**HEADLINE["pipeline"], "tta_flip": True,
+                                    "tta_scales": [1.0, 0.75]}}
+    return {
+        "headline": phase_main_path(np, torch, counters, card, "headline", HEADLINE, frames,
+                                    chunks=2, runs=3, trace=True),
+        "headline_centernet": phase_main_path(np, torch, counters, card, "headline_centernet",
+                                              HEADLINE_CENTERNET, frames, chunks=2, runs=3),
+        "headline_tta": phase_main_path(np, torch, counters, card, "headline_tta", tta, frames,
+                                        chunks=1, runs=2),
+    }
 
 
 def main() -> int:
@@ -483,7 +689,7 @@ def main() -> int:
     sys.path.insert(0, here)
     import numpy as np
 
-    from waymo_2d_tracking_tpu_torch.ops import _cuda, assign, nms
+    from waymo_2d_tracking_tpu_torch.ops import _cuda, assign, nms, roi_align, topk
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -502,19 +708,33 @@ def main() -> int:
             if "registers" in line or "smem" in line or "error" in line.lower():
                 log(f"[0] ptxas {kname}: {line.strip()}")
 
-    kern = phase_kernels(torch, nms, assign, smi)
+    counters = {"nms_mask": nms.nms_mask_cuda, "auction": assign.auction_kernel_cuda,
+                "topk_threshold": topk.topk_threshold_cuda, "roi_align": roi_align.roi_align_cuda}
+    kern = {k: {**v, "library_ms": None} for k, v in phase_kernels(torch, nms, assign, smi).items()}
+    kern["topk_threshold"] = phase_topk(torch, topk, smi)
+    kern["roi_align"] = phase_roi_align(torch, roi_align, smi)
+    log(f"[1] launches in phase 1 (comparisons and timing, not a main path): "
+        f"{json.dumps({k: fn.launches for k, fn in counters.items()})}")
     phase_fixtures(np, torch, nms, assign)
-    launches = phase_headline(np, torch, nms, assign, smi)
+    paths = phase_headlines(np, torch, counters, smi)
+    # neither the top-k threshold nor the RoIAlign kernel is on a main path
+    # (the JAX package runs them only through their own entry points); their
+    # counts are 0 there and are reported as they are
+    log(f"[3] launches on the main paths (first run of each): {json.dumps(paths)}")
 
     sources = {
         "nms_mask": ("waymo_2d_tracking_tpu_torch/csrc/nms.cu",
                      "waymo_2d_tracking_tpu/ops/nms.py:38"),
         "auction": ("waymo_2d_tracking_tpu_torch/csrc/auction.cu",
                     "waymo_2d_tracking_tpu/ops/assign.py:112"),
+        "topk_threshold": ("waymo_2d_tracking_tpu_torch/csrc/topk.cu",
+                           "waymo_2d_tracking_tpu/ops/topk.py:35"),
+        "roi_align": ("waymo_2d_tracking_tpu_torch/csrc/roi_align.cu",
+                      "waymo_2d_tracking_tpu/ops/roi_align.py:187"),
     }
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[k], **kern[k], "library_ms": None}
+         "launches": paths["headline"][k], **kern[k]}
         for k, (src, rep) in sources.items()
     ]}
     log(smi)

@@ -139,3 +139,36 @@ def test_render_copy_matches_jax(kw):
     np.testing.assert_array_equal(frames, jframes)
     for key in ("boxes", "present", "ids", "classes"):
         np.testing.assert_array_equal(gt[key], jgt[key])
+
+
+@pytest.mark.parametrize("method", ["approx", "exact"])
+def test_candidates_honour_topk_method(method):
+    """``topk_method='approx'`` is ``lax.approx_max_k`` in the JAX package,
+    exact off the TPU: the port's candidates equal JAX's for both methods,
+    ties included, and an unknown method raises."""
+    from waymo_2d_tracking_tpu.models.detector import (
+        gather_candidates_batched as jax_gather,
+    )
+    from waymo_2d_tracking_tpu_torch.models.detector import gather_candidates_batched
+
+    kw = dict(BASE, fpn_levels=(3, 4), pre_nms_topk=60, topk_method=method)
+    rng = np.random.default_rng(4)
+    head = {}
+    for lvl, (h, w) in ((3, (12, 16)), (4, (6, 8))):
+        # coarse logits: many equal scores, so the order among ties is compared
+        cls = (np.round(rng.normal(0, 1, (2, h, w, 3)) * 2) / 2).astype(np.float32)
+        ltrb = rng.uniform(0.5, 3.0, (2, h, w, 4)).astype(np.float32)
+        ctr = (np.round(rng.normal(0, 1, (2, h, w, 1)))).astype(np.float32)
+        head[lvl] = (cls, ltrb, ctr)
+    want = jax_gather({k: tuple(jnp.asarray(t) for t in v) for k, v in head.items()},
+                      JaxDetectorConfig(**kw))
+    got = gather_candidates_batched({k: tuple(torch.from_numpy(t) for t in v)
+                                     for k, v in head.items()}, DetectorConfig(**kw))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    # sigmoid and sqrt may round one ulp apart in the two frameworks
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=1e-6)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-6)
+    with pytest.raises(ValueError, match="topk method"):
+        gather_candidates_batched({k: tuple(torch.from_numpy(t) for t in v)
+                                   for k, v in head.items()},
+                                  DetectorConfig(**{**kw, "topk_method": "bucketed"}))

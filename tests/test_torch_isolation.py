@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, its
-config copy cannot drift from the JAX one, ``chip_smoke.py``'s headline dict
-is ``configs/headline.yaml``, and nothing falls back to the CPU on its own."""
+config copy cannot drift from the JAX one, ``chip_smoke.py``'s headline dicts
+are ``configs/headline.yaml`` and ``configs/headline_centernet.yaml``, and
+nothing falls back to the CPU on its own."""
 import ast
 import dataclasses
 import importlib.util
@@ -111,6 +112,8 @@ def test_entry_points_need_a_card_unless_cpu():
     from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
     from waymo_2d_tracking_tpu_torch.ops.assign import auction_kernel_cuda
     from waymo_2d_tracking_tpu_torch.ops.nms import nms_mask_cuda
+    from waymo_2d_tracking_tpu_torch.ops.roi_align import roi_align_cuda
+    from waymo_2d_tracking_tpu_torch.ops.topk import topk_threshold_cuda
     from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentPipeline
     from waymo_2d_tracking_tpu_torch.tracker import Tracker, init_state
 
@@ -129,21 +132,40 @@ def test_entry_points_need_a_card_unless_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         auction_kernel_cuda(torch.zeros(1, 64, 64), torch.ones(1), torch.ones(1, dtype=torch.bool),
                             eps_scale=0.2, eps_min=1e-2, max_iters=10)
+    with pytest.raises(ValueError, match="CUDA"):
+        roi_align_cuda(torch.zeros(1, 4, 4, 8), torch.zeros(1, 2, 4))
+    with pytest.raises(ValueError, match="CUDA"):
+        topk_threshold_cuda(torch.zeros(1, 16), 4)
 
 
 def test_later_slices_raise_not_implemented():
+    """int8 and output gap interpolation are later slices and raise; the
+    CenterNet head family and TTA are ported and build on the CPU."""
     from waymo_2d_tracking_tpu_torch.config import Config
+    from waymo_2d_tracking_tpu_torch.models.centernet import CenterNetHeads
     from waymo_2d_tracking_tpu_torch.models.detector import Detector
-    from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentPipeline
+    from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentPipeline, tta_active
 
     base = Config()
-    for overrides, what in (
-        ({"detector": {"quant": "int8"}}, "int8"),
-        ({"detector": {"head_family": "centernet"}}, "centernet"),
-    ):
-        with pytest.raises(NotImplementedError, match=what):
-            Detector(port_config._update(base, overrides).detector)
-    for overrides, what in (({"pipeline": {"tta_flip": True}}, "augmentation"),
-                            ({"pipeline": {"interp_max_gap": 2}}, "interp_max_gap")):
-        with pytest.raises(NotImplementedError, match=what):
-            SegmentPipeline(port_config._update(base, overrides), device="cpu")
+    with pytest.raises(NotImplementedError, match="int8"):
+        Detector(port_config._update(base, {"detector": {"quant": "int8"}}).detector)
+    with pytest.raises(NotImplementedError, match="interp_max_gap"):
+        SegmentPipeline(port_config._update(base, {"pipeline": {"interp_max_gap": 2}}),
+                        device="cpu")
+    small = {"backbone": "resnet18slim", "image_size": [64, 64], "fpn_channels": 32,
+             "fpn_levels": [3, 4, 5], "head_depth": 1, "embed_dim": 0}
+    centernet = {**small, "head_family": "centernet"}
+    assert isinstance(Detector(port_config._update(base, {"detector": centernet}).detector)
+                      .heads, CenterNetHeads)
+    for overrides in ({"pipeline": {"tta_flip": True}}, {"pipeline": {"tta_scales": [1.0, 0.75]}},
+                      {"pipeline": {"tta_flip": True}, "detector": centernet}):
+        cfg = port_config._update(base, {"detector": small, **overrides})
+        assert tta_active(cfg.pipeline)
+        SegmentPipeline(cfg, device="cpu")
+
+
+def test_headline_centernet_dict_equals_yaml():
+    smoke = _chip_smoke()
+    got = port_config._update(port_config.Config(), smoke.HEADLINE_CENTERNET)
+    want = jax_config.load_config(os.path.join(ROOT, "configs", "headline_centernet.yaml"))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)

@@ -1,5 +1,5 @@
 """Full detector (counterpart of ``models/detector.py``): ResNet + FPN + FCOS
-heads + ReID, with batched post-processing -- per-level top-k candidates,
+or CenterNet heads + ReID, with batched post-processing -- top-k candidates,
 class-aware NMS (the CUDA kernel on the card) and RoIAlign + ReID embedding --
 emitting tracker-ready ``Detections``.
 
@@ -21,6 +21,11 @@ from torch import nn
 from waymo_2d_tracking_tpu_torch import resolve_device
 from waymo_2d_tracking_tpu_torch.config import DetectorConfig
 from waymo_2d_tracking_tpu_torch.models import resnet as resnet_mod
+from waymo_2d_tracking_tpu_torch.models.centernet import (
+    PRIOR_BIAS,
+    CenterNetHeads,
+    gather_centernet_candidates_batched,
+)
 from waymo_2d_tracking_tpu_torch.models.fpn import FPN
 from waymo_2d_tracking_tpu_torch.models.heads import FCOSHeads, decode_level
 from waymo_2d_tracking_tpu_torch.models.reid import ReIDHead
@@ -29,6 +34,7 @@ from waymo_2d_tracking_tpu_torch.ops.roi_align import (
     roi_align_batched,
     roi_align_multilevel_batched,
 )
+from waymo_2d_tracking_tpu_torch.ops.topk import METHODS as TOPK_METHODS
 from waymo_2d_tracking_tpu_torch.types import Detections
 
 # class-aware NMS: boxes of different classes are offset far apart so one
@@ -67,10 +73,6 @@ def _check_supported(cfg: DetectorConfig) -> None:
         raise NotImplementedError(
             "detector.quant='int8' (models/quant.py) is not ported yet; it "
             "is a later slice of the port")
-    if cfg.head_family != "fcos":
-        raise NotImplementedError(
-            "head_family='centernet' (models/centernet.py) is not ported "
-            "yet; it is a later slice of the port")
     if cfg.backbone not in _BACKBONES:
         raise ValueError(f"unknown backbone {cfg.backbone}")
 
@@ -85,10 +87,17 @@ class Detector(nn.Module):
         self.cfg = cfg
         self.backbone = _BACKBONES[cfg.backbone](stem=cfg.stem)
         self.fpn = FPN(self.backbone.out_channels, cfg.fpn_channels, cfg.fpn_levels)
-        self.heads = FCOSHeads(
-            cfg.fpn_channels, num_classes=cfg.num_classes, depth=cfg.head_depth,
-            channels=cfg.head_channels or cfg.fpn_channels, levels=cfg.fpn_levels,
-        )
+        head_channels = cfg.head_channels or cfg.fpn_channels
+        if cfg.head_family == "centernet":
+            self.heads = CenterNetHeads(
+                cfg.fpn_channels, num_classes=cfg.num_classes, depth=cfg.head_depth,
+                channels=head_channels, level=cfg.centernet_level,
+            )
+        else:
+            self.heads = FCOSHeads(
+                cfg.fpn_channels, num_classes=cfg.num_classes, depth=cfg.head_depth,
+                channels=head_channels, levels=cfg.fpn_levels,
+            )
         if cfg.embed_dim > 0:
             self.reid = ReIDHead(cfg.fpn_channels, embed_dim=cfg.embed_dim,
                                  channels=cfg.reid_channels or cfg.fpn_channels)
@@ -107,7 +116,7 @@ class Detector(nn.Module):
     def init_weights(self, generator: torch.Generator) -> None:
         """Seeded random init in the spirit of the flax defaults: LeCun-normal
         conv / dense kernels, zero biases, unit norms, the focal prior bias
-        (-4.595) on the class logits and unit per-level scales."""
+        (-4.595) on the class or heat logits and unit per-level scales."""
         for name, p in self.named_parameters():
             if name.endswith("weight") and p.dim() > 1:
                 fan_in = p[0].numel()
@@ -116,12 +125,21 @@ class Detector(nn.Module):
                 p.fill_(1.0)
             else:
                 p.zero_()
-        self.heads.cls_logits.bias.fill_(-4.595)
+        centernet = isinstance(self.heads, CenterNetHeads)
+        logits = self.heads.heat if centernet else self.heads.cls_logits
+        logits.bias.fill_(PRIOR_BIAS)
 
 
-def _level_candidates(cls_logits, ltrb, ctr, stride: int, k: int):
+def _level_candidates(cls_logits, ltrb, ctr, stride: int, k: int,
+                      method: str = "exact"):
     """Per-level top-k candidates for an image batch:
-    (boxes (N,k,4), scores (N,k), classes (N,k) int32)."""
+    (boxes (N,k,4), scores (N,k), classes (N,k) int32).
+
+    ``method='approx'`` is ``lax.approx_max_k`` in the JAX package, which is
+    approximate only on the TPU; on the CPU and GPU XLA computes it exactly,
+    ties lowest index first. Both methods give that exact result here."""
+    if method not in TOPK_METHODS:
+        raise ValueError(f"topk method must be one of {TOPK_METHODS}, got {method!r}")
     n, h, w, num_classes = cls_logits.shape
     prob = torch.sigmoid(cls_logits.float())
     ctr_prob = torch.sigmoid(ctr.float())
@@ -139,10 +157,15 @@ def _level_candidates(cls_logits, ltrb, ctr, stride: int, k: int):
 
 
 def gather_candidates_batched(head_out, cfg: DetectorConfig):
-    """Per-level top-k candidates concatenated over levels:
-    (boxes (N,C,4), scores (N,C), classes (N,C))."""
+    """Top-k candidates: (boxes (N,C,4), scores (N,C), classes (N,C)).
+
+    FCOS concatenates per-level candidates over the levels; CenterNet decodes
+    the peaks of its one heatmap, with the same contract."""
+    if cfg.head_family == "centernet":
+        return gather_centernet_candidates_batched(head_out, cfg)
     cand = [
-        _level_candidates(*head_out[lvl], stride=2 ** lvl, k=cfg.pre_nms_topk)
+        _level_candidates(*head_out[lvl], stride=2 ** lvl, k=cfg.pre_nms_topk,
+                          method=cfg.topk_method)
         for lvl in cfg.fpn_levels
     ]
     return tuple(torch.cat([c[i] for c in cand], dim=1) for i in range(3))
@@ -167,12 +190,6 @@ def select_detections_batched(boxes, scores, classes, cfg: DetectorConfig):
     out_classes = torch.where(valid, torch.gather(classes, 1, safe_idx),
                               torch.zeros_like(safe_idx, dtype=classes.dtype))
     return out_boxes, nms_scores, out_classes, valid
-
-
-def postprocess_batched(head_out, cfg: DetectorConfig):
-    """Batched head outputs -> (boxes (N,D,4), scores, classes, valid)."""
-    boxes, scores, classes = gather_candidates_batched(head_out, cfg)
-    return select_detections_batched(boxes, scores, classes, cfg)
 
 
 def _pool_reid_features(p_feats, boxes, cfg: DetectorConfig):
@@ -221,8 +238,14 @@ class DetectorRunner:
     @torch.no_grad()
     def postprocess(self, head_out, p_feats) -> Detections:
         """Candidates -> NMS -> top-D -> RoIAlign + ReID embeddings."""
+        return self.select(gather_candidates_batched(head_out, self.cfg), p_feats)
+
+    @torch.no_grad()
+    def select(self, candidates, p_feats) -> Detections:
+        """(boxes, scores, classes) candidates -> NMS -> top-D -> RoIAlign +
+        ReID embeddings pooled from ``p_feats``."""
         with self.precision():
-            boxes, scores, classes, valid = postprocess_batched(head_out, self.cfg)
+            boxes, scores, classes, valid = select_detections_batched(*candidates, self.cfg)
             n, d = boxes.shape[:2]
             if self.cfg.embed_dim > 0:
                 pooled = _pool_reid_features(p_feats, boxes, self.cfg)

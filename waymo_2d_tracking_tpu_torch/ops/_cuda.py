@@ -10,7 +10,8 @@ all started together.
 Flags: ``-fmad=false`` and no ``--use_fast_math``. The NMS keep-mask must
 round its IoU exactly like the JAX kernel (``inter / max(union, 1e-7)`` with
 ``union = area_i + area_j - inter``); a contracted FMA in the union changes
-ties at the IoU threshold. ``-Xptxas -v`` reports registers and shared
+ties at the IoU threshold. The top-k threshold's halvings and RoIAlign's
+blends are held to their plain versions bit for bit on the same ground. ``-Xptxas -v`` reports registers and shared
 memory per kernel; the report is kept in ``BUILD_LOG``.
 
 There is no fallback: a missing ``nvcc``, a failed build or a failed launch
@@ -29,7 +30,7 @@ from typing import Dict, Sequence
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-KERNELS = ("nms", "auction")
+KERNELS = ("nms", "auction", "topk", "roi_align")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -8,8 +8,10 @@ chunks. Nothing in the chunk waits on the host; outputs come back once per
 chunk through ``RollingFetch``, which keeps at most ``prefetch_depth``
 chunks in flight.
 
-Later slices: test-time augmentation, JPEG ingest, the host ``cv2``
-downscale for ``decode_scale_denom > 1`` and output gap interpolation raise
+Detection goes through ``dispatch_detect``: the plain batched forward, or the
+test-time augmentation union (``pipeline/tta.py``) when the preset asks for
+it. Later slices: JPEG ingest, the host ``cv2`` downscale for
+``decode_scale_denom > 1`` and output gap interpolation raise
 ``NotImplementedError`` here; ``run_segments`` (manifest and gallery
 sidecar) is not ported yet.
 """
@@ -26,6 +28,7 @@ from waymo_2d_tracking_tpu_torch.config import Config
 from waymo_2d_tracking_tpu_torch.data.preprocess import letterbox_batch
 from waymo_2d_tracking_tpu_torch.io_out import submission as subm
 from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
+from waymo_2d_tracking_tpu_torch.pipeline.tta import detect_tta_batch
 from waymo_2d_tracking_tpu_torch.tracker import init_state, track_segment
 from waymo_2d_tracking_tpu_torch.types import Detections, TrackOutputs
 
@@ -86,8 +89,18 @@ class RollingFetch:
         return self._host
 
 
-def _tta_active(p) -> bool:
+def tta_active(p) -> bool:
+    """True when the preset's TTA knobs ask for a multi-view candidate union."""
     return bool(p.tta_flip) or tuple(p.tta_scales) != (1.0,)
+
+
+def dispatch_detect(detector: DetectorRunner, cfg: Config, images: torch.Tensor) -> Detections:
+    """The one detection dispatch rule: the plain batched forward, or the TTA
+    candidate union when the preset enables it."""
+    if tta_active(cfg.pipeline):
+        return detect_tta_batch(detector, images, scales=tuple(cfg.pipeline.tta_scales),
+                                flip=cfg.pipeline.tta_flip)
+    return detector.detect(images)
 
 
 class SegmentPipeline:
@@ -99,10 +112,6 @@ class SegmentPipeline:
 
     def __init__(self, cfg: Config, state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  device="cuda", seed: int = 0):
-        if _tta_active(cfg.pipeline):
-            raise NotImplementedError(
-                "test-time augmentation (pipeline/tta.py) is not ported yet; "
-                "it is a later slice of the port")
         if cfg.pipeline.interp_max_gap > 0:
             raise NotImplementedError(
                 "pipeline.interp_max_gap > 0 needs io_out/postprocess.py, "
@@ -135,7 +144,7 @@ class SegmentPipeline:
         fetcher = RollingFetch(depth=cfg.pipeline.prefetch_depth)
         for block in segment.chunk_iter(chunk, scale_denom=sd):
             images, scale = self.preprocess(block, src_hw)
-            dets = self.detector.detect(images)
+            dets = dispatch_detect(self.detector, cfg, images)
             if detections_only:
                 fetcher.push(dets)
             else:
