@@ -8,13 +8,21 @@ Phases (any failed check raises, and the script exits non-zero):
 0. the card (``nvidia-smi`` name and power limit), then ``nvcc`` builds all
    four CUDA kernels from ``waymo_2d_tracking_tpu_torch/csrc/`` in parallel;
 1. each kernel against its plain PyTorch version on the card at the main
-   path's shapes, with CUDA-event times: NMS keep-masks bit-equal at
-   (B=128, N=1024) with class offsets plus the chain and invalid cases;
+   path's shapes, timed by CUDA events around a call (``ms``, the measure
+   of every run so far; it holds the host's time to reach the launch too)
+   and, beside that, by its device time in a ``torch.profiler`` trace
+   (``device_ms``): NMS keep-masks bit-equal at (B=128, N=1024) with class
+   offsets plus the chain and invalid cases;
    auction row -> col equal on a batch of 256 tracker-like problems at n=64
-   and a few at n=128, and within n * eps_min of scipy on a sample; the top-k
-   threshold bit-equal at the headline's P3 size (N=14112, k=512, one vector
-   and the chunk's 128 at once), at N=28800, on ties and on the
-   large-magnitude snap case, timed beside ``torch.kthvalue``; RoIAlign at
+   and a few at each other n the kernel takes (32, 96, 128), and within
+   n * eps_min of scipy on a sample, timed for one problem and for the 256
+   in one launch; the top-k threshold
+   bit-equal at the headline's P3 size (N=14112, k=512, one vector and the
+   chunk's 128 at once), at N=28800, on ties, on the large-magnitude snap
+   case, at k = 1 and k = N, on an all-equal vector, on a geometric spread
+   from 1e-30 to 1e30 (six rounds of the plain search), on subnormals, and by
+   value on signed zeros at the k-th position, timed beside
+   ``torch.kthvalue``; RoIAlign at
    the headline ReID shape (P3 56x84x128, 64 RoIs, 7x7, sampling 2) within
    1e-5 in float32 and one bf16 ulp in bfloat16, on boxes partly outside the
    map and on a 2-row map, timed beside the matmul form for one image and for
@@ -32,7 +40,8 @@ Phases (any failed check raises, and the script exits non-zero):
    launch counts and the split of a chunk into letterbox / detector forward /
    candidates + NMS + RoIAlign + ReID / tracker loop (CUDA events). For the
    headline, as a separate measurement, the device's busy share of 3 traced
-   chunks (``torch.profiler``), each from its own trace.
+   chunks (``torch.profiler``), each from its own trace, and the auction
+   kernel's device time in each.
 
 The last two lines are the kernels' JSON record and the device record. It
 imports no JAX and nothing of the JAX package.
@@ -40,6 +49,7 @@ imports no JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -130,6 +140,46 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, reps: int, per: int = 1):
+    """Device time of one call of ``fn`` over ``per``, in ms, from one
+    ``torch.profiler`` trace of ``reps`` calls: for each kernel or copy
+    name, the mean length of its device intervals times how many of them a
+    call makes, summed; None when the trace holds no device interval.
+    Unlike ``cuda_time_ms`` it leaves out the host's time to reach the
+    launch, which exceeds a short kernel's own time. A trace can lose its
+    last few device intervals, so the time is not the recorded total over
+    ``reps``, and a call's count is rounded up; a name whose count is not a
+    multiple of ``reps`` is logged."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    total = 0.0
+    for name, lengths in by_name.items():
+        if len(lengths) % reps:
+            log(f"[1] note: the trace holds {len(lengths)} device intervals of {name[:60]} "
+                f"for {reps} calls")
+        total += statistics.fmean(lengths) * math.ceil(len(lengths) / reps)
+    if total <= 0:
+        log("[1] note: the trace holds no device interval")
+        return None
+    return total / 1e3 / per
+
+
+def ms_text(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def bound(bytes_moved: float, ops: float):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
@@ -180,6 +230,7 @@ def phase_kernels(torch, nms, assign, card):
     if not torch.equal(k2, nms.nms_mask_reference(b2, sparse_valid, 0.5)) or k2[~sparse_valid].any():
         raise AssertionError("NMS invalid-entry case differs from the plain version")
     nms_ms = cuda_time_ms(lambda: nms.nms_mask_cuda(boxes, valid, 0.6), reps=30)
+    nms_dev_ms = device_ms(lambda: nms.nms_mask_cuda(boxes, valid, 0.6), reps=30)
     nms_plain_ms = cuda_time_ms(lambda: nms.nms_mask_reference(boxes, valid, 0.6),
                                 reps=3, warmup=1)
     # Greedy needs the IoU only of pairs (kept i, valid j > i): a box that is
@@ -190,7 +241,8 @@ def phase_kernels(torch, nms, assign, card):
     pairs = float((want.double() * valid_after.double()).sum())
     nms_bound, nms_by = bound(boxes.numel() * 4 + valid.numel() * 2, 14 * pairs)
     log(f"[1] nms kernel == plain at (B=128, N=1024) with class offsets, chain "
-        f"and invalid cases ({card}): kernel {nms_ms:.4f} ms (median of 30), "
+        f"and invalid cases ({card}): kernel {nms_ms:.4f} ms (median of 30; device time "
+        f"{ms_text(nms_dev_ms)}, one trace of 30 calls), "
         f"plain {nms_plain_ms:.2f} ms (median of 3), bound {nms_bound:.6f} ms ({nms_by}); "
         f"kept {int(want.sum())} of {int(valid.sum())} valid, {pairs:.0f} (kept, later valid) pairs")
 
@@ -213,11 +265,11 @@ def phase_kernels(torch, nms, assign, card):
 
     kw = dict(eps_scale=0.2, eps_min=1e-2, max_iters=4096)
     auc_err = 0.0
-    for count, n, seed in ((256, 64, 3), (8, 128, 4)):
+    for count, n, seed in ((256, 64, 3), (8, 128, 4), (8, 32, 13), (8, 96, 14)):
         ben, eps0, feas, costs, valids = problems(count, n - 7, n - 20, n, seed)
         feas[0] = False                        # one infeasible problem per batch
         got = assign.auction_kernel_cuda(ben, eps0, feas, **kw)
-        want, rounds, bids = assign.auction_kernel_reference(ben, eps0, feas, **kw)
+        want, rounds, bids, bidders = assign.auction_kernel_reference(ben, eps0, feas, **kw)
         torch.cuda.synchronize()
         auc_err = max(auc_err, float((got - want).abs().max()))
         if not torch.equal(got, want):
@@ -239,14 +291,18 @@ def phase_kernels(torch, nms, assign, card):
             total = sum(cost[i, j] for i, j in pairs_ok)
             if total > sub[ri, ci][feasible].sum() + n * 1e-2 + 1e-4:
                 raise AssertionError(f"auction cost {total} exceeds scipy + n*eps_min")
+        per_round = bidders[1:].sum(dim=0).double() / float(rounds[1:].sum())
         log(f"[1] auction kernel == plain on {count} problems at n={n}; "
             f"scipy bound holds on {min(8, count - 1)}; rounds median {int(rounds[1:].median())}, "
-            f"bids median {int(bids[1:].median())}")
+            f"bids median {int(bids[1:].median())}; share of rounds with 1 bidder "
+            f"{float(per_round[1]):.3f}, with at most 4 {float(per_round[1:5].sum()):.3f}")
         if n == 64:
             batch = (ben, eps0, feas, rounds, bids)
 
     ben, eps0, feas, rounds, bids = batch
+    # the 256 problems in one launch, several warps (problems) per CTA
     batch_ms = cuda_time_ms(lambda: assign.auction_kernel_cuda(ben, eps0, feas, **kw), reps=20)
+    batch_dev_ms = device_ms(lambda: assign.auction_kernel_cuda(ben, eps0, feas, **kw), reps=10)
     # the main path launches one n=64 problem at a time: time 20 single launches
     singles = [(ben[p:p + 1], eps0[p:p + 1], feas[p:p + 1]) for p in range(1, 21)]
 
@@ -255,6 +311,7 @@ def phase_kernels(torch, nms, assign, card):
             fn(*args, **kw)
 
     auc_ms = cuda_time_ms(lambda: run_singles(assign.auction_kernel_cuda), reps=20) / 20
+    auc_dev_ms = device_ms(lambda: run_singles(assign.auction_kernel_cuda), reps=5, per=20)
     auc_plain_ms = cuda_time_ms(lambda: run_singles(assign.auction_kernel_reference),
                                 reps=3, warmup=1) / 20
     n = ben.shape[-1]
@@ -264,14 +321,16 @@ def phase_kernels(torch, nms, assign, card):
     bids20 = float(bids[1:21].double().mean())
     auc_bound, auc_by = bound(n * n * 4 + 4 + 1 + n * 4, (3 * n + 4) * bids20)
     log(f"[1] auction single n=64 launch (main-path shape, mean of 20 problems; {card}): "
-        f"kernel {auc_ms:.4f} ms, plain {auc_plain_ms:.2f} ms, bound {auc_bound:.7f} ms "
-        f"({auc_by}; {float(rounds[1:21].double().mean()):.1f} rounds, {bids20:.1f} bids "
-        f"per problem); batch of 256 in one launch {batch_ms:.4f} ms (median of 20)")
+        f"kernel {auc_ms:.4f} ms (CUDA events over the 20 launches back to back, median of "
+        f"20; device time {ms_text(auc_dev_ms)}), plain {auc_plain_ms:.2f} ms, library none, "
+        f"bound {auc_bound:.7f} ms ({auc_by}; {float(rounds[1:21].double().mean()):.1f} rounds, "
+        f"{bids20:.1f} bids per problem); batch of 256 in one launch, several problems per "
+        f"CTA, {batch_ms:.4f} ms (median of 20; device time {ms_text(batch_dev_ms)})")
     return {
         "nms_mask": dict(max_abs_err=nms_err, ms=nms_ms, plain_ms=nms_plain_ms,
-                         bound_ms=nms_bound, bound_by=nms_by),
+                         bound_ms=nms_bound, bound_by=nms_by, device_ms=nms_dev_ms),
         "auction": dict(max_abs_err=auc_err, ms=auc_ms, plain_ms=auc_plain_ms,
-                        bound_ms=auc_bound, bound_by=auc_by),
+                        bound_ms=auc_bound, bound_by=auc_by, device_ms=auc_dev_ms),
     }
 
 
@@ -284,6 +343,30 @@ def fcos_scores(torch, b: int, n_loc: int, seed: int):
     return torch.sqrt(torch.sigmoid(cls) * torch.sigmoid(ctr)).reshape(b, -1).contiguous()
 
 
+def topk_edge_cases(torch, p3, dev):
+    """(name, (1, N) vector, k, compared by value) edge cases of the top-k
+    threshold at the headline's P3 size."""
+    n = p3.shape[1]
+    one = p3[:1]
+    g = torch.Generator().manual_seed(12)
+    geo = torch.logspace(-30, 30, n, dtype=torch.float64)[torch.randperm(n, generator=g)]
+    sub = (1 + torch.rand(n, generator=g) * 99) * 1e-40      # subnormal f32
+    sub[::3] *= -1
+    sub[: n // 8] = torch.randn(n // 8, generator=g)         # some normal scores above
+    # +-0.0 at the k-th position: two positives and six zeros of either sign
+    # in every ten scores
+    tile = torch.tensor([0.0, -0.0, 2.0, -0.0, 0.0, -1.0, 3.0, -0.0, 0.0, -2.0])
+    zeros = tile.repeat(n // 10 + 1)[:n]
+    return [
+        ("k=1", one, 1, False),
+        ("k=N", one, n, False),
+        ("all-equal", torch.full((1, n), 0.37, device=dev), 300, False),
+        ("geometric 1e-30..1e30", geo.float()[None].to(dev), n - 1, False),
+        ("subnormals", sub.float()[None].to(dev), n // 2, False),
+        ("signed zeros", zeros[None].to(dev), int((zeros > 0).sum()) + 100, True),
+    ]
+
+
 def phase_topk(torch, topk, card):
     dev = torch.device("cuda")
     k = 512
@@ -292,20 +375,25 @@ def phase_topk(torch, topk, card):
     ties = (torch.round(p3[:1] * 64) / 64).contiguous()
     snap = torch.tensor([[1e9, -1e9, 0.0, 1e-4, 1e-4, -3e8, 2e8]], device=dev)
     err, rounds = 0.0, {}
-    for name, vec, kk in (("P3 N=14112", p3[:1], k), ("N=28800", big, k),
-                          ("ties", ties, k), ("snap", snap, 3)):
+    cases = [("P3 N=14112", p3[:1], k, False), ("N=28800", big, k, False),
+             ("ties", ties, k, False), ("snap", snap, 3, False)]
+    for name, vec, kk, by_value in cases + topk_edge_cases(torch, p3, dev):
+        vec = vec.contiguous()
         kth, cnt = topk.topk_threshold_cuda(vec, kk)
         want, want_cnt, rounds[name] = topk.topk_threshold_reference(vec, kk, with_rounds=True)
+        lib = torch.kthvalue(vec[0], vec.shape[1] - kk + 1).values
         torch.cuda.synchronize()
         err = max(err, float((kth[0] - want).abs()))
-        if not (torch.equal(kth.view(torch.int32), want.reshape(1).view(torch.int32))
-                and int(cnt[0]) == int(want_cnt)):
+        same = (float(kth[0]) == float(want) if by_value
+                else torch.equal(kth.view(torch.int32), want.reshape(1).view(torch.int32)))
+        if not (same and int(cnt[0]) == int(want_cnt) and float(kth[0]) == float(lib)):
             raise AssertionError(f"top-k kernel != plain on {name}: {kth.tolist()} {cnt.tolist()} "
-                                 f"vs {float(want)!r} {int(want_cnt)}")
-    # the snap case's 3rd largest is 1e-4, found only after a restarted round
-    if float(kth[0]) != float(torch.tensor(1e-4)) or int(cnt[0]) != 2 or rounds["snap"] < 2:
-        raise AssertionError(f"snap case: kth {float(kth[0])!r}, {int(cnt[0])} above, "
-                             f"{rounds['snap']} rounds")
+                                 f"vs {float(want)!r} {int(want_cnt)} (torch.kthvalue {float(lib)!r})")
+        if name == "snap":
+            # the 3rd largest is 1e-4, found only after a restarted round
+            if float(kth[0]) != float(torch.tensor(1e-4)) or int(cnt[0]) != 2 or rounds[name] < 2:
+                raise AssertionError(f"snap case: kth {float(kth[0])!r}, {int(cnt[0])} above, "
+                                     f"{rounds[name]} rounds")
     # the chunk's 128 P3 vectors in one launch, each held to the plain version
     kth_b, cnt_b = topk.topk_threshold_cuda(p3, k)
     for i in range(p3.shape[0]):
@@ -324,18 +412,24 @@ def phase_topk(torch, topk, card):
     plain_ms = cuda_time_ms(lambda: topk.topk_threshold_reference(one, k), reps=5, warmup=1)
     lib_ms = cuda_time_ms(lambda: torch.kthvalue(one, n - k + 1, dim=1), reps=50)
     lib_batch_ms = cuda_time_ms(lambda: torch.kthvalue(p3, n - k + 1, dim=1), reps=20)
-    # each round is 40 counting passes, one min pass and one count pass over
-    # the vector, after one min / max pass: one compare per element per pass
-    r = rounds["P3 N=14112"]
-    passes = 2 + r * (topk.ITERS + 2)
-    bnd, by = bound(n * 4 + 8, n * passes)
+    dev_ms = device_ms(lambda: topk.topk_threshold_cuda(one, k), reps=50)
+    dev_batch_ms = device_ms(lambda: topk.topk_threshold_cuda(p3, k), reps=20)
+    lib_dev_ms = device_ms(lambda: torch.kthvalue(one, n - k + 1, dim=1), reps=50)
+    lib_dev_batch_ms = device_ms(lambda: torch.kthvalue(p3, n - k + 1, dim=1), reps=20)
+    # what the function needs, whatever the method: the vector read once, one
+    # compare per score, kth and the count written once
+    bnd, by = bound(n * 4 + 8, n)
     log(f"[1] top-k threshold kernel bit-equal to plain at N=14112 (k=512, the chunk's 128 "
-        f"vectors too), N=28800, ties and the snap case; rounds {json.dumps(rounds)} ({card}): "
-        f"one vector kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, torch.kthvalue {lib_ms:.4f} ms, "
-        f"bound {bnd:.7f} ms ({by}); 128 vectors in one launch {batch_ms:.4f} ms, "
-        f"torch.kthvalue over (128, {n}) {lib_batch_ms:.4f} ms")
+        f"vectors too), N=28800, ties, the snap case, k=1, k=N, all-equal, geometric, "
+        f"subnormals, and by value on signed zeros; plain version's rounds "
+        f"(with_rounds) {json.dumps(rounds)} ({card}): one vector kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.3f} ms, torch.kthvalue {lib_ms:.4f} ms, bound {bnd:.7f} ms ({by}); 128 "
+        f"vectors in one launch {batch_ms:.4f} ms, torch.kthvalue over (128, {n}) "
+        f"{lib_batch_ms:.4f} ms; device time (one trace each) one vector "
+        f"kernel {ms_text(dev_ms)}, torch.kthvalue {ms_text(lib_dev_ms)}, 128 vectors kernel "
+        f"{ms_text(dev_batch_ms)}, torch.kthvalue {ms_text(lib_dev_batch_ms)}")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                library_ms=lib_ms)
+                library_ms=lib_ms, device_ms=dev_ms)
 
 
 def roi_boxes(torch, n: int, r: int, hw, seed: int):
@@ -390,6 +484,10 @@ def phase_roi_align(torch, roi, card):
     chunk_plain_ms = cuda_time_ms(lambda: roi.roi_align_kernel_reference(fb, boxes, **kw),
                                   reps=3, warmup=1)
     chunk_mm_ms = cuda_time_ms(lambda: roi.roi_align_batched(fb, boxes, **kw), reps=5)
+    dev_ms = device_ms(lambda: roi.roi_align_cuda(one16, oneb, **kw), reps=50)
+    mm_dev_ms = device_ms(lambda: roi.roi_align_batched(one16, oneb, **kw), reps=20)
+    chunk_dev_ms = device_ms(lambda: roi.roi_align_cuda(fb, boxes, **kw), reps=10)
+    chunk_mm_dev_ms = device_ms(lambda: roi.roi_align_batched(fb, boxes, **kw), reps=5)
     # one image: read the bf16 map and the boxes once, write the bf16 output
     # once; per output 4 s^2 products and sums of the y-blends and 4 s of the
     # x-blend (40 at s = 2)
@@ -402,9 +500,12 @@ def phase_roi_align(torch, roi, card):
         f"|err| {err16:.2e} ({equal16:.4f} of outputs bit-equal), 2-row map {err_small:.2e} "
         f"({card}); one image bf16: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, matmul form "
         f"{mm_ms:.4f} ms, bound {bnd:.6f} ms ({by}); chunk of 128 images x 64 RoIs bf16: kernel "
-        f"{chunk_ms:.4f} ms, plain {chunk_plain_ms:.2f} ms, matmul form {chunk_mm_ms:.4f} ms")
+        f"{chunk_ms:.4f} ms, plain {chunk_plain_ms:.2f} ms, matmul form {chunk_mm_ms:.4f} ms; "
+        f"device time (one trace each) one image kernel {ms_text(dev_ms)}, "
+        f"matmul form {ms_text(mm_dev_ms)}, chunk kernel {ms_text(chunk_dev_ms)}, matmul form "
+        f"{ms_text(chunk_mm_dev_ms)}")
     return dict(max_abs_err=max(err32, err16, err_small), ms=ms, plain_ms=plain_ms,
-                bound_ms=bnd, bound_by=by, library_ms=None)
+                bound_ms=bnd, bound_by=by, library_ms=None, device_ms=dev_ms)
 
 
 # ----------------------------------------------------------------- phase 2
@@ -554,12 +655,14 @@ def device_busy(torch, pipe, frames, chunk, card):
             cur_e = max(cur_e, e0)
         busy_us += cur_e - cur_s
         span_us = max(e0 for _, e0 in spans) - spans[0][0]
-        device_ms, copies = {}, {}
+        by_name, copies = {}, {}
         for e in device:
-            device_ms[e.name] = device_ms.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
             if "Memcpy" in e.name:
                 copies[e.name] = copies.get(e.name, 0) + 1
-        top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:6]
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        auction = [e for e in device if "auction_kernel" in e.name]
+        auction_ms = sum(e.time_range.elapsed_us() for e in auction) / 1e3
         # runtime calls that copy or wait, issued inside the tracker loop
         loop = [e for e in events if e.name == "tracker_loop"
                 and e.device_type == DeviceType.CPU][0].time_range
@@ -570,6 +673,7 @@ def device_busy(torch, pipe, frames, chunk, card):
                 waits[e.name] = waits.get(e.name, 0) + 1
         log(f"[3] traced chunk {rep} ({card}): device busy {busy_us / 1e3:.3f} ms of a "
             f"{span_us / 1e3:.3f} ms device span, idle share {1 - busy_us / span_us:.4f}; "
+            f"auction kernel {auction_ms:.3f} ms of device time in {len(auction)} launches; "
             f"copy / wait runtime calls inside the tracker loop: {json.dumps(waits)}; "
             f"device copies in the chunk: {json.dumps(copies)}; most device time (ms): "
             + json.dumps([[k[:60], round(v, 3)] for k, v in top]))

@@ -1,4 +1,4 @@
-// Eps-scaled Jacobi auction for square benefit matrices, one CTA per problem.
+// Eps-scaled Jacobi auction for square benefit matrices, one warp per problem.
 //
 // Replaces the Pallas TPU kernel _auction_kernel of the JAX package's
 // ops/assign.py (launched by _pallas_auction). The schedule is the same,
@@ -9,32 +9,58 @@
 //     keeps the prices, and bids until every row holds a column or
 //     max_iters rounds have run;
 //   - a round: every unassigned row finds its best column (the lowest index
-//     among equal maxima of benefit - price) and second-best value v2 (-1e30
-//     when there is none) and bids b_best - v2 + e; every column takes the
-//     highest bid, ties to the lowest row; row -> column follows the owners.
+//     among equal maxima of benefit - price, against the prices as they stood
+//     at the start of the round) and second-best value v2 (-1e30 when there
+//     is none; v2 = v1 when the maximum is tied) and bids
+//     (b_best - v2) + e; every column takes the highest bid, ties to the
+//     lowest row; row -> column follows the owners.
 //   - padding rows bid like real ones: all n rows take part (r = n). With
 //     phase resets, a column whose stale price exceeds every real row's
 //     willingness is reclaimed only by the indifferent padding rows.
 // New here: a problem flagged infeasible (no valid pair) exits at once with
 // all -1, the skip that JAX made with lax.cond around the kernel; keeping it
-// in the kernel spares the tracker a host sync per step. A batch of problems
-// is one launch, one CTA each.
+// in the kernel spares the tracker a host sync per step.
 //
-// What bounds it: the rounds are serial (hundreds per problem), so the
-// latency of one round, not bytes (the benefit is read once, n^2 * 4 bytes)
-// or arithmetic. The design keeps all state on chip -- the benefit in shared
-// memory, prices, owners, bids and row -> column as shared vectors -- and
-// cuts a round to two CTA barriers with warp-wide reductions:
-//   - row phase: a warp per row, each lane scanning every 32nd column; the
-//     (best, lowest index of best, second best) triple is combined by
-//     butterfly shuffles. Max is exact and the tie rule is symmetric, so the
-//     result does not depend on the reduction order;
-//   - column phase: a warp per column, each lane scanning every 32nd row's
-//     bid, reduced to (highest bid, lowest row);
-//   - row -> column is updated in place where a column changes hands (the
-//     old owner loses it, the winner takes it). A row owns at most one
-//     column -- only unassigned rows bid, one column each -- so this equals
-//     rebuilding it from the owners, and no other row is written.
+// What bounds it: the rounds are serial (about 530 per n=64 tracker problem),
+// so the latency of one round, not bytes (the benefit is read once, n^2 * 4
+// bytes) or arithmetic (the bids the schedule needs). A single warp issues a
+// dependent chain at several cycles an instruction, so a round costs about
+// its instruction count: the design keeps that count small, branch-free and
+// in registers, with no barrier but __syncwarp.
+//   - One warp per problem. The benefit sits in shared memory at a padded
+//     row stride n + 1. Lane l holds the price and the owner of columns l,
+//     l + 32, ... in registers; the unassigned rows are a bit mask that every
+//     lane holds, so the bidders come in ascending row order.
+//   - How a round runs depends on its bidder count. In tracker problems at
+//     n = 64 over two rounds in five have one bidder and about seven in ten
+//     at most four (chip_smoke.py prints the shares); the first round of
+//     each eps phase has all n.
+//       * Up to four bidders (in tiers of 1 and 4, so few lanes idle): all
+//         32 lanes work on each bidder, the bidders' chains interleaved.
+//         Each lane takes benefit - price over its columns; v1 is a
+//         __reduce_max_sync over order-preserving keys of the lanes' maxima,
+//         j1 the lowest column holding v1 (a __ballot_sync per register), v2
+//         a second __reduce_max_sync over the other columns (so v2 = v1 when
+//         the maximum is tied). The column phase walks the bidders in
+//         ascending row order: the lane that owns the column keeps a bid only
+//         if it is strictly greater, so ties go to the lowest row.
+//       * More: one lane per bidder (32 at a time) scans the n columns in two
+//         interleaved chains, the price of each column broadcast by a shuffle
+//         from the lane that holds it. The scan is branch-free: v1 = max,
+//         v2 = max(v2, min(v1, v)), and j1 moves only on a strictly greater
+//         value, so it is the lowest column among equal maxima. Each bid goes
+//         to its column as one 64-bit shared atomicMax of (order-preserving
+//         key of the bid, ~row): the highest bid, ties to the lowest row, as
+//         the ascending walk gives.
+//     Max is exact and the keys preserve order, so either way is the plain
+//     version's argmax and column winner, bit for bit.
+//   - Where a column changes hands its old owner becomes unassigned and the
+//     winner assigned: each lane sets the rows' bits of its columns, and
+//     __reduce_or_sync merges them into every lane's mask. A row owns at most
+//     one column, so this equals rebuilding row -> column from the owners,
+//     which is written out once at the end.
+// A batch of problems is one launch: several warps per CTA once the batch
+// exceeds the SM count, each warp its own problem and its own shared region.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -42,129 +68,325 @@
 namespace {
 
 constexpr int kMaxN = 128;
-constexpr int kThreads = 1024;
+constexpr int kFew = 4;                    // most bidders a round handles with all lanes on each
+constexpr int kMaxWarpsPerCta = 8;
+constexpr int kMaxSmem = 227 * 1024;       // what one block may use on Hopper
+constexpr int kMaxDevices = 64;
 constexpr float kBig = 1e30f;
+constexpr unsigned kAll = 0xffffffffu;
 
-__device__ __forceinline__ void take_best(float& v1, int& j1, float& v2,
-                                          float o1, int oj, float o2) {
-  // merge two (best, index of best, second best) triples
-  if (o1 > v1 || (o1 == v1 && oj < j1)) {
-    v2 = fmaxf(v1, o2);
-    v1 = o1;
-    j1 = oj;
-  } else {
-    v2 = fmaxf(v2, o1);
+// one problem's shared region, in 4-byte words: the benefit (n rows of
+// n + 1), the bidder rows (n), the column slots (n of 8 bytes)
+template <int NQ>
+struct Region {
+  static constexpr int n = 32 * NQ;
+  static constexpr int ld = n + 1;
+  static constexpr int words = n * ld + 3 * n;
+};
+
+// order-preserving key of a float (-0.0 as +0.0), and back
+__device__ __forceinline__ unsigned order_key(float x) {
+  unsigned u = __float_as_uint(x);
+  if (u == 0x80000000u) u = 0u;
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(unsigned key) {
+  return __uint_as_float((key & 0x80000000u) ? (key & 0x7fffffffu) : ~key);
+}
+
+// A set of rows 0..n-1 as 64-bit words (hi only for n > 64). Kept in scalars,
+// not in an array indexed by row / 32: the compiler turns such an index into
+// branches around chains of predicated moves.
+template <int NQ>
+struct RowSet {
+  unsigned long long lo = 0ull, hi = 0ull;
+
+  __device__ __forceinline__ void fill() {
+    lo = NQ >= 2 ? ~0ull : 0xffffffffull;
+    hi = NQ == 4 ? ~0ull : (NQ == 3 ? 0xffffffffull : 0ull);
+  }
+
+  __device__ __forceinline__ int count() const { return __popcll(lo) + __popcll(hi); }
+
+  __device__ __forceinline__ bool has(int row) const {
+    return (((NQ > 2 && row >= 64) ? hi : lo) >> (row & 63)) & 1ull;
+  }
+
+  // how many rows of the set lie below row
+  __device__ __forceinline__ int rank(int row) const {
+    const unsigned long long below = (1ull << (row & 63)) - 1ull;
+    return (NQ > 2 && row >= 64) ? __popcll(lo) + __popcll(hi & below) : __popcll(lo & below);
+  }
+
+  // the lowest row, removed from the set; -1 when the set is empty
+  __device__ __forceinline__ int pop() {
+    if (NQ <= 2) {
+      const int row = __ffsll(lo) - 1;   // __ffsll(0) = 0
+      lo &= lo - 1ull;
+      return row;
+    }
+    const int row = lo ? __ffsll(lo) - 1 : (hi ? 63 + __ffsll(hi) : -1);
+    if (lo) lo &= lo - 1ull; else hi &= hi - 1ull;
+    return row;
+  }
+
+  __device__ __forceinline__ void add(int row, bool on) {
+    const unsigned long long bit = on ? 1ull << (row & 63) : 0ull;
+    if (NQ > 2 && row >= 64) hi |= bit; else lo |= bit;
+  }
+
+  // the union over the warp's lanes
+  __device__ __forceinline__ void warp_union() {
+    lo = (unsigned long long)__reduce_or_sync(kAll, (unsigned)(lo >> 32)) << 32
+         | __reduce_or_sync(kAll, (unsigned)lo);
+    if (NQ > 2)
+      hi = (unsigned long long)__reduce_or_sync(kAll, (unsigned)(hi >> 32)) << 32
+           | __reduce_or_sync(kAll, (unsigned)hi);
+  }
+};
+
+// (best value, lowest column holding it, best value over the other columns)
+// of a scan in ascending column order. Branch-free: v1 and v2 are a max and
+// a min-max, so only j1 waits on a compare.
+struct Best {
+  float v1 = -INFINITY;
+  int j1 = 0;
+  float v2 = -kBig;
+
+  __device__ __forceinline__ void step(float v, int j) {
+    j1 = v > v1 ? j : j1;
+    v2 = fmaxf(v2, fminf(v1, v));
+    v1 = fmaxf(v1, v);
+  }
+
+  // merge with the scan of other columns: the lower column wins a tie
+  __device__ __forceinline__ void merge(const Best& o) {
+    j1 = (o.v1 > v1 || (o.v1 == v1 && o.j1 < j1)) ? o.j1 : j1;
+    v2 = fmaxf(fminf(v1, o.v1), fmaxf(v2, o.v2));
+    v1 = fmaxf(v1, o.v1);
+  }
+};
+
+// The bids of a round with at most B bidders, all 32 lanes on each bidder;
+// the highest bid on each of this lane's columns, ties to the lowest row.
+template <int NQ, int B>
+__device__ __forceinline__ void bid_few(const float* b, const float (&price)[NQ],
+                                        RowSet<NQ> rem, float e, int lane,
+                                        float (&best)[NQ], int (&win)[NQ]) {
+  constexpr int n = Region<NQ>::n;
+  constexpr int ld = Region<NQ>::ld;
+  int row[B], j1[B];
+  float v[B][NQ];
+  unsigned key[B];
+#pragma unroll
+  for (int k = 0; k < B; ++k) {
+    row[k] = rem.pop();                     // -1 past the last bidder
+    const float* r = b + (row[k] < 0 ? 0 : row[k]) * ld;
+    float m = -INFINITY;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      v[k][q] = __fsub_rn(r[q * 32 + lane], price[q]);
+      m = fmaxf(m, v[k][q]);
+    }
+    key[k] = order_key(m);
+  }
+#pragma unroll
+  for (int k = 0; k < B; ++k) key[k] = __reduce_max_sync(kAll, key[k]);
+#pragma unroll
+  for (int k = 0; k < B; ++k) {
+    const float v1 = key_value(key[k]);
+    j1[k] = n;
+#pragma unroll
+    for (int q = NQ - 1; q >= 0; --q) {
+      const unsigned hit = __ballot_sync(kAll, v[k][q] == v1);
+      j1[k] = hit ? q * 32 + __ffs(hit) - 1 : j1[k];
+    }
+    float m2 = -kBig;
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) m2 = q * 32 + lane != j1[k] ? fmaxf(m2, v[k][q]) : m2;
+    key[k] = order_key(m2);
+  }
+#pragma unroll
+  for (int k = 0; k < B; ++k) key[k] = __reduce_max_sync(kAll, key[k]);
+  // column phase, bidders in ascending row order: strictly greater wins
+#pragma unroll
+  for (int k = 0; k < B; ++k) {
+    const float b1 = b[(row[k] < 0 ? 0 : row[k]) * ld + j1[k]];
+    const float bid = __fadd_rn(__fsub_rn(b1, key_value(key[k])), e);
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const bool take = row[k] >= 0 && j1[k] == q * 32 + lane && bid > best[q];
+      best[q] = take ? bid : best[q];
+      win[q] = take ? row[k] : win[q];
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-auction_kernel(const float* __restrict__ benefit, const float* __restrict__ eps0,
-               const uint8_t* __restrict__ feasible, int32_t* __restrict__ out,
-               int n, float eps_scale, float eps_min, float eps_stop, int max_iters) {
-  extern __shared__ float smem[];
-  float* b = smem;                                   // n * n
-  float* price = b + n * n;                          // n
-  float* bid = price + n;                            // n
-  int* jbest = reinterpret_cast<int*>(bid + n);      // n
-  int* owner = jbest + n;                            // n
-  int* rtc = owner + n;                              // n
-  __shared__ int unassigned;
+// The bids of a round with many bidders, one lane per bidder; the highest
+// bid on each of this lane's columns, ties to the lowest row.
+template <int NQ>
+__device__ __forceinline__ void bid_many(const float* b, const float (&price)[NQ],
+                                         const RowSet<NQ>& un, int nb, float e, int lane,
+                                         int* rows, unsigned long long* slot,
+                                         float (&best)[NQ], int (&win)[NQ]) {
+  constexpr int n = Region<NQ>::n;
+  constexpr int ld = Region<NQ>::ld;
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const int i = q * 32 + lane;
+    if (un.has(i)) rows[un.rank(i)] = i;   // row i: the bidders in ascending order
+    slot[i] = 0ull;                        // column i: no bid yet
+  }
+  __syncwarp();
+  for (int base = 0; base < nb; base += 32) {
+    const int t = base + lane;
+    const int row = rows[t < nb ? t : base];
+    const float* r = b + row * ld;
+    Best even, odd;
+#pragma unroll
+    for (int j = 0; j < n; j += 2) {
+      even.step(__fsub_rn(r[j], __shfl_sync(kAll, price[j >> 5], j & 31)), j);
+      odd.step(__fsub_rn(r[j + 1], __shfl_sync(kAll, price[(j + 1) >> 5], (j + 1) & 31)), j + 1);
+    }
+    even.merge(odd);
+    const float bid = __fadd_rn(__fsub_rn(r[even.j1], even.v2), e);
+    if (t < nb)
+      atomicMax(&slot[even.j1], (unsigned long long)order_key(bid) << 32 | (unsigned)~row);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    const unsigned long long s = slot[q * 32 + lane];
+    best[q] = s ? key_value((unsigned)(s >> 32)) : best[q];
+    win[q] = s ? (int)~(unsigned)s : win[q];
+  }
+}
 
-  const int prob = blockIdx.x;
-  const int t = threadIdx.x;
-  const int lane = t & 31;
-  const int warp = t >> 5;
-  const int nwarps = blockDim.x >> 5;
+template <int NQ>
+__global__ void __launch_bounds__(kMaxWarpsPerCta * 32)
+auction_kernel(const float* __restrict__ benefit, const float* __restrict__ eps0,
+               const uint8_t* __restrict__ feasible, int32_t* __restrict__ out, int batch,
+               float eps_scale, float eps_min, float eps_stop, int max_iters) {
+  constexpr int n = Region<NQ>::n;
+  constexpr int ld = Region<NQ>::ld;
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int prob = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (prob >= batch) return;   // the whole warp; nothing below waits on other warps
   int32_t* outp = out + (size_t)prob * n;
-  if (!feasible[prob]) {   // uniform over the CTA, before any barrier
-    for (int i = t; i < n; i += blockDim.x) outp[i] = -1;
+  if (!feasible[prob]) {
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) outp[q * 32 + lane] = -1;
     return;
   }
-  const float* bp = benefit + (size_t)prob * n * n;
-  for (int k = t; k < n * n; k += blockDim.x) b[k] = bp[k];
-  for (int i = t; i < n; i += blockDim.x) {
-    price[i] = 0.f;
-    rtc[i] = -1;
+  float* b = smem + (size_t)warp * Region<NQ>::words;
+  int* rows = reinterpret_cast<int*>(b + n * ld);
+  unsigned long long* slot = reinterpret_cast<unsigned long long*>(rows + n);
+  const float4* bp = reinterpret_cast<const float4*>(benefit + (size_t)prob * n * n);
+#pragma unroll 8
+  for (int k4 = lane; k4 < n * n / 4; k4 += 32) {
+    const float4 x = bp[k4];
+    float* d = b + (k4 * 4 / n) * ld + (k4 * 4) % n;
+    d[0] = x.x;
+    d[1] = x.y;
+    d[2] = x.z;
+    d[3] = x.w;
   }
+  __syncwarp();
+
+  float price[NQ];   // of column q * 32 + lane
+  int own[NQ];       // its owner row, -1 for none
+  RowSet<NQ> un;     // unassigned rows, the same in every lane
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    price[q] = 0.f;
+    own[q] = -1;
+  }
+  un.fill();
   float eps = eps0[prob];
-  __syncthreads();
 
   while (eps > 0.f) {
     const float e = fmaxf(eps, eps_min);
-    __syncthreads();   // every thread has read the last loop test of the previous phase
-    for (int i = t; i < n; i += blockDim.x) {
-      rtc[i] = -1;
-      owner[i] = -1;
-    }
-    if (t == 0) unassigned = n;
-    __syncthreads();
-    for (int it = 0; it < max_iters && unassigned > 0; ++it) {
-      // row phase: a warp per row
-      for (int i = warp; i < n; i += nwarps) {
-        if (rtc[i] >= 0) {
-          if (lane == 0) jbest[i] = -1;
-          continue;
-        }
-        const float* row = b + i * n;
-        float v1 = -INFINITY, v2 = -kBig;
-        int j1 = n;
-        for (int j = lane; j < n; j += 32) {
-          const float v = __fsub_rn(row[j], price[j]);
-          if (v > v1) {
-            v2 = fmaxf(v2, v1);
-            v1 = v;
-            j1 = j;
-          } else if (v > v2) {
-            v2 = v;
-          }
-        }
-        for (int off = 16; off > 0; off >>= 1) {
-          const float o1 = __shfl_xor_sync(0xffffffffu, v1, off);
-          const int oj = __shfl_xor_sync(0xffffffffu, j1, off);
-          const float o2 = __shfl_xor_sync(0xffffffffu, v2, off);
-          take_best(v1, j1, v2, o1, oj, o2);
-        }
-        if (lane == 0) {
-          jbest[i] = j1;
-          bid[i] = __fadd_rn(__fsub_rn(row[j1], v2), e);
-        }
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) own[q] = -1;
+    un.fill();
+    for (int it = 0; it < max_iters; ++it) {
+      const int nb = un.count();
+      if (nb == 0) break;
+      float best[NQ];
+      int win[NQ];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        best[q] = -kBig;
+        win[q] = n;
       }
-      __syncthreads();
-      // column phase: a warp per column; highest bid, ties to the lowest row
-      for (int j = warp; j < n; j += nwarps) {
-        float best = -kBig;
-        int win = n;
-        for (int i = lane; i < n; i += 32) {
-          if (jbest[i] == j && bid[i] > best) {
-            best = bid[i];
-            win = i;
-          }
-        }
-        for (int off = 16; off > 0; off >>= 1) {
-          const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-          const int ow = __shfl_xor_sync(0xffffffffu, win, off);
-          if (ob > best || (ob == best && ow < win)) {
-            best = ob;
-            win = ow;
-          }
-        }
-        if (lane == 0 && best > -kBig * 0.5f) {
-          const int old = owner[j];
-          if (old >= 0) {
-            rtc[old] = -1;
-          } else {
-            atomicSub(&unassigned, 1);
-          }
-          price[j] = best;
-          owner[j] = win;
-          rtc[win] = j;
-        }
+      if (nb == 1)
+        bid_few<NQ, 1>(b, price, un, e, lane, best, win);
+      else if (nb <= kFew)
+        bid_few<NQ, kFew>(b, price, un, e, lane, best, win);
+      else
+        bid_many<NQ>(b, price, un, nb, e, lane, rows, slot, best, win);
+      // columns that took a bid change hands: the winner is assigned, the
+      // old owner unassigned
+      RowSet<NQ> won, lost;
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const bool has = best[q] > -kBig * 0.5f;
+        won.add(win[q], has);
+        lost.add(own[q], has && own[q] >= 0);
+        price[q] = has ? best[q] : price[q];
+        own[q] = has ? win[q] : own[q];
       }
-      __syncthreads();
+      won.warp_union();
+      lost.warp_union();
+      un.lo = (un.lo & ~won.lo) | lost.lo;
+      un.hi = (un.hi & ~won.hi) | lost.hi;
     }
     eps = (e <= eps_stop) ? 0.f : __fmul_rn(eps, eps_scale);
   }
-  for (int i = t; i < n; i += blockDim.x) outp[i] = rtc[i];
+  // row -> column: -1 for the unassigned rows, else the column each owns
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+    if (un.has(q * 32 + lane)) outp[q * 32 + lane] = -1;
+#pragma unroll
+  for (int q = 0; q < NQ; ++q)
+    if (own[q] >= 0) outp[own[q]] = q * 32 + lane;
+}
+
+template <int NQ>
+int launch(const float* benefit, const float* eps0, const uint8_t* feasible, int32_t* out,
+           int batch, float eps_scale, float eps_min, float eps_stop, int max_iters,
+           cudaStream_t stream) {
+  // per process and device: the SM count, and whether this instantiation may
+  // use more than 48 KB of dynamic shared memory
+  static int sms[kMaxDevices];
+  static bool opted_in[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (sms[dev] == 0) {
+    err = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  constexpr size_t per_warp = (size_t)Region<NQ>::words * 4;
+  int warps = (batch + sms[dev] - 1) / sms[dev];   // one warp per CTA until every SM has one
+  const int fit = (int)(kMaxSmem / per_warp);
+  warps = warps < fit ? warps : fit;
+  warps = warps < kMaxWarpsPerCta ? warps : kMaxWarpsPerCta;
+  const size_t smem = (size_t)warps * per_warp;
+  if (smem > 48 * 1024 && !opted_in[dev]) {
+    err = cudaFuncSetAttribute(auction_kernel<NQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxSmem);
+    if (err != cudaSuccess) return (int)err;
+    opted_in[dev] = true;
+  }
+  const int grid = (batch + warps - 1) / warps;
+  auction_kernel<NQ><<<grid, warps * 32, smem, stream>>>(
+      benefit, eps0, feasible, out, batch, eps_scale, eps_min, eps_stop, max_iters);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -174,12 +396,12 @@ extern "C" int w2t_auction(const float* benefit, const float* eps0, const uint8_
                            float eps_stop, int max_iters, void* stream) {
   if (batch <= 0) return 0;
   if (n <= 0 || n > kMaxN || n % 32 != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)n * n * 4 + (size_t)n * 5 * 4;
-  cudaError_t err = cudaFuncSetAttribute(
-      auction_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = n * 32 < kThreads ? n * 32 : kThreads;   // a warp per row
-  auction_kernel<<<batch, threads, smem, (cudaStream_t)stream>>>(
-      benefit, eps0, feasible, out, n, eps_scale, eps_min, eps_stop, max_iters);
-  return (int)cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(benefit) % 16 != 0) return (int)cudaErrorMisalignedAddress;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (n / 32) {
+    case 1: return launch<1>(benefit, eps0, feasible, out, batch, eps_scale, eps_min, eps_stop, max_iters, s);
+    case 2: return launch<2>(benefit, eps0, feasible, out, batch, eps_scale, eps_min, eps_stop, max_iters, s);
+    case 3: return launch<3>(benefit, eps0, feasible, out, batch, eps_scale, eps_min, eps_stop, max_iters, s);
+    default: return launch<4>(benefit, eps0, feasible, out, batch, eps_scale, eps_min, eps_stop, max_iters, s);
+  }
 }

@@ -10,9 +10,10 @@ all started together.
 Flags: ``-fmad=false`` and no ``--use_fast_math``. The NMS keep-mask must
 round its IoU exactly like the JAX kernel (``inter / max(union, 1e-7)`` with
 ``union = area_i + area_j - inter``); a contracted FMA in the union changes
-ties at the IoU threshold. The top-k threshold's halvings and RoIAlign's
-blends are held to their plain versions bit for bit on the same ground. ``-Xptxas -v`` reports registers and shared
-memory per kernel; the report is kept in ``BUILD_LOG``.
+ties at the IoU threshold. The auction's bids and RoIAlign's blends are
+held to their plain versions bit for bit on the same ground. ``-Xptxas -v``
+reports registers and shared memory per kernel; the report is kept in
+``BUILD_LOG``.
 
 There is no fallback: a missing ``nvcc``, a failed build or a failed launch
 raises.

@@ -138,13 +138,14 @@ def _auction_while_loop(benefit, eps0, eps_scale, eps_min, max_iters):
 def auction_kernel_reference(
     benefit: torch.Tensor, eps0: torch.Tensor, feasible: torch.Tensor, *,
     eps_scale: float, eps_min: float, max_iters: int,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+):
     """Plain PyTorch version of ``csrc/auction.cu`` (the Pallas kernel's
     schedule), batched: benefit (P, n, n) f32, eps0 (P,) f32, feasible (P,)
     bool. Returns (row_to_col (P, n) int32, rounds (P,) int64, bids (P,)
-    int64): the bidding rounds each problem ran and the bids its unassigned
-    rows made over them (the data-dependent work, used for the kernel's
-    bound). Problems run in lockstep, each masked out once its own loop has
+    int64, bidders (P, n + 1) int64): the bidding rounds each problem ran,
+    the bids its unassigned rows made over them (the data-dependent work,
+    used for the kernel's bound) and how many of its rounds had 0..n
+    bidders. Problems run in lockstep, each masked out once its own loop has
     ended."""
     pn, n, _ = benefit.shape
     dev = benefit.device
@@ -156,6 +157,7 @@ def auction_kernel_reference(
     rtc = torch.full((pn, n), -1, dtype=torch.int32, device=dev)
     rounds = torch.zeros((pn,), dtype=torch.int64, device=dev)
     bids_made = torch.zeros((pn,), dtype=torch.int64, device=dev)
+    bidders = torch.zeros((pn, n + 1), dtype=torch.int64, device=dev)
     eps = eps0.float().clone()
     outer = feasible.bool() & (eps > 0)
     while bool(outer.any()):
@@ -189,12 +191,13 @@ def auction_kernel_reference(
             rtc = torch.where(inner[:, None], new_rtc, rtc)
             rounds += inner.long()
             bids_made += unassigned.sum(dim=1)
+            bidders.scatter_add_(1, unassigned.sum(dim=1, keepdim=True), inner.long()[:, None])
             it += 1
         next_eps = torch.where(e <= eps_stop, torch.zeros_like(eps), eps * eps_scale)
         eps = torch.where(outer, next_eps, eps)
         outer = outer & (eps > 0)
     rtc = torch.where(feasible.bool()[:, None], rtc, -1)
-    return rtc.to(torch.int32), rounds, bids_made
+    return rtc.to(torch.int32), rounds, bids_made, bidders
 
 
 def auction_kernel_cuda(
@@ -203,7 +206,8 @@ def auction_kernel_cuda(
 ) -> torch.Tensor:
     """Launch ``csrc/auction.cu`` on a batch: benefit (P, n, n) f32 with n a
     multiple of 32 up to 128, eps0 (P,) f32, feasible (P,) bool, all
-    contiguous on one CUDA device. Returns row_to_col (P, n) int32."""
+    contiguous on one CUDA device. Returns row_to_col (P, n) int32. One warp
+    per problem, several problems per CTA when P exceeds the SM count."""
     dev = benefit.device
     if dev.type != "cuda" or eps0.device != dev or feasible.device != dev:
         raise ValueError("auction_kernel_cuda takes CUDA tensors on one device")
@@ -219,6 +223,8 @@ def auction_kernel_cuda(
         raise ValueError(f"the auction kernel takes n in 32..{MAX_N} step 32, got {n}")
     if not (benefit.is_contiguous() and eps0.is_contiguous() and feasible.is_contiguous()):
         raise ValueError("benefit, eps0 and feasible must be contiguous")
+    if benefit.data_ptr() % 16:
+        raise ValueError("benefit must start on a 16-byte boundary (the kernel reads float4)")
     out = torch.empty((pn, n), dtype=torch.int32, device=dev)
     lib = _cuda.library("auction")
     with torch.cuda.device(dev):

@@ -1,11 +1,11 @@
 """Top-k selection (counterpart of ``ops/topk.py``).
 
-``topk_threshold`` is the exact k-th largest value of a score vector by
-binary search, plus the count of scores strictly above it. A CUDA tensor
-launches the hand-written kernel ``csrc/topk.cu`` (it replaces the Pallas
-``_threshold_kernel``); a CPU tensor runs ``topk_threshold_reference``, the
-plain PyTorch version of the same steps. Both reproduce the Pallas kernel to
-the bit:
+``topk_threshold`` is the exact k-th largest value of a score vector plus the
+count of scores strictly above it. A CUDA tensor launches the hand-written
+kernel ``csrc/topk.cu``, a radix select over order-preserving 32-bit keys (it
+replaces the Pallas ``_threshold_kernel``); a CPU tensor runs
+``topk_threshold_reference``, the plain PyTorch version of the Pallas
+kernel's binary search, step for step and to the bit:
 
 - ``lo = min(s) - 1``, ``hi = max(s)``;
 - 40 halvings: ``mid = (lo + hi) * 0.5`` in float32; ``count(s >= mid) >= k``
@@ -15,9 +15,15 @@ the bit:
   with ``hi`` kept, at most 16 rounds;
 - the result is ``(kth, count(s > kth))``.
 
-The Pallas kernel counts in float32, exact below 2**24 elements; the port
-counts in integers and refuses N >= 2**24 rather than differ silently.
-Scores are assumed free of NaN.
+Domain: finite scores, no NaN, ``|s| < 2**127``, ``N < 2**24``. There both
+compute the same function, the exact k-th largest score (each round of the
+search narrows its interval by 2**40, so it reaches adjacent floats well
+inside 16 rounds); -0.0 and +0.0 count as equal, so a k-th value of zero may
+come back with either sign. Outside it they differ: near +-FLT_MAX ``lo +
+hi`` overflows and the search no longer returns the k-th largest value. The
+wrappers do not check the domain (a check would cost a host sync). The
+Pallas kernel counts in float32, exact below 2**24 elements; the port counts
+in integers and refuses N >= 2**24 rather than differ silently.
 
 ``topk_mask`` selects exactly k entries (ties broken by lowest flat index);
 ``topk`` is the ordered top-k the detector uses.
@@ -50,8 +56,12 @@ def _check(n: int, k: int) -> None:
 
 def topk_threshold_reference(scores: torch.Tensor, k: int, with_rounds: bool = False):
     """Plain PyTorch threshold search over ``scores`` (any shape, flattened):
-    (kth float32 0-dim, n_above int32 0-dim), step for step the kernel's.
-    ``with_rounds`` appends the number of snap-and-verify rounds it took."""
+    (kth float32 0-dim, n_above int32 0-dim), step for step the Pallas
+    kernel's binary search. On finite scores with ``|s| < 2**127`` and
+    ``N < 2**24`` this is the exact k-th largest score and the count above
+    it, the function ``csrc/topk.cu`` computes by radix select; outside that
+    domain the two differ (see the module docstring). ``with_rounds``
+    appends the number of snap-and-verify rounds it took."""
     s = scores.reshape(-1).to(torch.float32)
     _check(s.numel(), k)
     inf = torch.tensor(float("inf"), dtype=torch.float32, device=s.device)
@@ -75,8 +85,11 @@ def topk_threshold_reference(scores: torch.Tensor, k: int, with_rounds: bool = F
 
 def topk_threshold_cuda(scores: torch.Tensor, k: int):
     """Launch ``csrc/topk.cu`` on B score vectors at once: scores (B, N)
-    float32, a contiguous CUDA tensor. Returns (kth (B,) float32, n_above
-    (B,) int32), one CTA per vector."""
+    float32, a contiguous CUDA tensor, 1 <= k <= N. Returns (kth (B,)
+    float32, n_above (B,) int32), one CTA per vector: a radix select in three
+    digit passes over order-preserving keys. Its domain is that of
+    ``topk_threshold_reference``: finite scores, no NaN, ``|s| < 2**127``,
+    ``N < 2**24``; a k-th value of zero comes back as +0.0."""
     if scores.device.type != "cuda":
         raise ValueError("topk_threshold_cuda takes a CUDA tensor")
     if scores.dtype != torch.float32:
@@ -85,6 +98,8 @@ def topk_threshold_cuda(scores: torch.Tensor, k: int):
         raise ValueError(f"scores must be a contiguous (B, N) tensor, got {tuple(scores.shape)}")
     b, n = scores.shape
     _check(n, k)
+    if k < 1:
+        raise ValueError(f"k={k} < 1")
     kth = torch.empty((b,), dtype=torch.float32, device=scores.device)
     cnt = torch.empty((b,), dtype=torch.int32, device=scores.device)
     lib = _cuda.library("topk")
