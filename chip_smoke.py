@@ -12,7 +12,13 @@ Phases (any failed check raises, and the script exits non-zero):
    of every run so far; it holds the host's time to reach the launch too)
    and, beside that, by its device time in a ``torch.profiler`` trace
    (``device_ms``): NMS keep-masks bit-equal at (B=128, N=1024) with class
-   offsets plus the chain and invalid cases;
+   offsets, on the chain and invalid cases, at N=2048 and N=4096 (B=8), N=33
+   and N=1, on an image with nothing valid, on 1024 copies of one box, on a
+   chain of 64 boxes that each overlap only their neighbours, on pairs whose
+   IoU lies within a few float32 steps of the threshold either side, at a
+   negative and a zero threshold and on an unaligned tensor, timed at
+   (128, 1024), (8, 1024) and (128, 2048), each beside its bound, with the
+   kernel's own ``clock64`` readings of its phases;
    auction row -> col equal on a batch of 256 tracker-like problems at n=64
    and a few at each other n the kernel takes (32, 96, 128), and within
    n * eps_min of scipy on a sample, timed for one problem and for the 256
@@ -25,8 +31,10 @@ Phases (any failed check raises, and the script exits non-zero):
    ``torch.kthvalue``; RoIAlign at
    the headline ReID shape (P3 56x84x128, 64 RoIs, 7x7, sampling 2) within
    1e-5 in float32 and one bf16 ulp in bfloat16, on boxes partly outside the
-   map and on a 2-row map, timed beside the matmul form for one image and for
-   a chunk of 128 images;
+   map, on a 2-row map, at C = 100, 8 and 3 (no 16-byte vector divides them
+   all) with zero-width, inverted and wholly outside boxes on an aligned and
+   an unaligned feature tensor, timed beside the matmul form for one image
+   and for a chunk of 128 images, each beside its bound;
 2. the trained fixtures in float32 with TF32 off through the whole slice:
    seed-5 and dense-clip MOTA/IDF1/IDSW floors, the ReID recovery gain, and
    the seed-5 clip with test-time augmentation (flip, scales 1.0 and 0.75)
@@ -41,7 +49,7 @@ Phases (any failed check raises, and the script exits non-zero):
    candidates + NMS + RoIAlign + ReID / tracker loop (CUDA events). For the
    headline, as a separate measurement, the device's busy share of 3 traced
    chunks (``torch.profiler``), each from its own trace, and the auction
-   kernel's device time in each.
+   and NMS kernels' device time in each.
 
 The last two lines are the kernels' JSON record and the device record. It
 imports no JAX and nothing of the JAX package.
@@ -206,9 +214,90 @@ def nms_inputs(torch, b: int, n: int, seed: int):
     return boxes.contiguous(), valid.contiguous()
 
 
-def phase_kernels(torch, nms, assign, card):
+def near_threshold_pairs(torch, thr: float):
+    """(M, 64, 4) boxes and (M, 64) valid: in each image a kept box A at slot 0
+    and one box B whose IoU with A lies a few float32 steps from ``thr``,
+    found by bisection on B's right edge in float32 on the host; B sits at
+    slot 1 (A's own block of 32) or at slot 40 (a later block), every other
+    slot is invalid. Steps of 1-3 values either side stay inside the band
+    where the kernel divides, 16 and 64 leave it."""
+    from waymo_2d_tracking_tpu_torch.ops.iou import pairwise_iou
+
+    images = []
+    for a, offset in (([10.3, 20.7, 131.9, 97.2], 0.0), ([3.0, 5.0, 61.5, 40.25], 2e5),
+                      ([100.1, 50.2, 180.7, 222.9], 1e5)):
+        a = torch.tensor(a, dtype=torch.float32) + offset
+
+        def box_b(bits):
+            b = a.clone()
+            b[2] = torch.tensor(bits, dtype=torch.int32).view(torch.float32)
+            return b
+
+        def hit(bits):
+            return bool(pairwise_iou(a[None], box_b(bits)[None])[0, 0] > torch.tensor(thr))
+
+        # IoU grows with B's right edge between A's left and right edges
+        lo = int((a[0] + 1).view(torch.int32))
+        hi = int(a[2].view(torch.int32))
+        if hit(lo) or not hit(hi):
+            raise AssertionError("near-threshold bisection: the ends do not bracket thr")
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            lo, hi = (lo, mid) if hit(mid) else (mid, hi)
+        for step in (-64, -16, -3, -2, -1, 0, 1, 2, 3, 16, 64):
+            for slot in (1, 40):
+                boxes = torch.zeros(64, 4)
+                valid = torch.zeros(64, dtype=torch.bool)
+                boxes[0], boxes[slot] = a, box_b(hi + step)
+                valid[0] = valid[slot] = True
+                images.append((boxes, valid))
+    return (torch.stack([b for b, _ in images]).contiguous(),
+            torch.stack([v for _, v in images]).contiguous())
+
+
+def nms_edge_cases(torch):
+    """(name, boxes (B, N, 4), valid (B, N), thr) on the host."""
+    def ones(*shape):
+        return torch.ones(*shape, dtype=torch.bool)
+
+    big = [nms_inputs(torch, 8, n, seed=20 + n) for n in (2048, 4096)]
+    b1000, _ = nms_inputs(torch, 4, 1000, seed=2)
+    sparse = torch.rand(4, 1000, generator=torch.Generator().manual_seed(21)) > 0.6
+    b33, v33 = nms_inputs(torch, 4, 33, seed=22)
+    same = torch.tensor([7.5, 3.25, 90.0, 61.0]).repeat(1, 1024, 1)
+    # 64 boxes 10 wide, 6 apart: each overlaps only its neighbours (IoU 0.25)
+    x0 = torch.arange(64, dtype=torch.float32) * 6
+    chain = torch.stack([x0, torch.zeros(64), x0 + 10, torch.full((64,), 10.0)], dim=-1)[None]
+    near, near_valid = near_threshold_pairs(torch, 0.6)
+    neg, neg_valid = nms_inputs(torch, 2, 200, seed=23)
+    return [
+        ("N=2048 B=8", *big[0], 0.6),
+        ("N=4096 B=8", *big[1], 0.6),
+        ("N=1000 sparse valid", b1000, sparse, 0.5),
+        ("N=33", b33, v33, 0.5),
+        ("N=1", b33[:, :1].contiguous(), ones(4, 1), 0.5),
+        ("nothing valid", b1000, torch.zeros(4, 1000, dtype=torch.bool), 0.5),
+        ("1024 copies of one box", same, ones(1, 1024), 0.6),
+        ("chain of 64 neighbours", chain, ones(1, 64), 0.2),
+        ("near the threshold", near, near_valid, 0.6),
+        ("negative threshold", neg, neg_valid, -0.5),
+        ("threshold 0 (always divides)", neg, neg_valid, 0.0),
+    ]
+
+
+def nms_bound(valid, keep):
+    """Greedy needs the IoU only of pairs (kept i, valid j > i): a box that is
+    removed suppresses nothing. 14 operations per pair: 4 max/min, 2 sub,
+    2 clamp, 1 mul, add + sub, 1 max, 1 div, 1 compare. 18 bytes a box."""
+    v = valid.int()
+    valid_after = v.flip(1).cumsum(1).flip(1) - v
+    pairs = float((keep.double() * valid_after.double()).sum())
+    return (*bound(valid.numel() * 18, 14 * pairs), pairs)
+
+
+def phase_nms(torch, nms, card):
     dev = torch.device("cuda")
-    # --- NMS at the headline shapes: B = chunk 128, N = nms_topk 1024
+    # --- the headline shape: B = chunk 128, N = nms_topk 1024
     boxes, valid = nms_inputs(torch, 128, 1024, seed=1)
     boxes, valid = boxes.to(dev), valid.to(dev)
     got = nms.nms_mask_cuda(boxes, valid, 0.6)
@@ -223,28 +312,83 @@ def phase_kernels(torch, nms, assign, card):
     keep = nms.nms_mask_cuda(chain, torch.ones(1, 3, dtype=torch.bool, device=dev), 0.2)
     if keep.tolist() != [[True, False, True]]:
         raise AssertionError(f"NMS chain-revival case: {keep.tolist()}")
-    sparse_valid = (torch.rand(4, 1000, device=dev) > 0.6).contiguous()
-    b2, _ = nms_inputs(torch, 4, 1000, seed=2)
-    b2 = b2.to(dev)
-    k2 = nms.nms_mask_cuda(b2, sparse_valid, 0.5)
-    if not torch.equal(k2, nms.nms_mask_reference(b2, sparse_valid, 0.5)) or k2[~sparse_valid].any():
-        raise AssertionError("NMS invalid-entry case differs from the plain version")
+    kept_of = {}
+    for name, b, v, thr in nms_edge_cases(torch):
+        b, v = b.to(dev), v.to(dev)
+        k = nms.nms_mask_cuda(b, v, thr)
+        w = nms.nms_mask_reference(b, v, thr)
+        torch.cuda.synchronize()
+        if not torch.equal(k, w) or k[~v].any():
+            raise AssertionError(f"NMS kernel != plain on {name}: "
+                                 f"{int((k != w).sum())} entries differ")
+        nms_err = max(nms_err, float((k.int() - w.int()).abs().max()))
+        kept_of[name] = (k, v)
+    # what the cases are there for
+    k, v = kept_of["near the threshold"]
+    second = k[:, 1] | k[:, 40]
+    if not (second.any() and not second.all()):
+        raise AssertionError("near-threshold case: B falls on one side of thr only")
+    k, v = kept_of["negative threshold"]              # every pair a hit: the first valid box
+    if int(kept_of["1024 copies of one box"][0].sum()) != 1 \
+            or kept_of["nothing valid"][0].any() \
+            or kept_of["chain of 64 neighbours"][0][0].tolist() != [True, False] * 32 \
+            or not torch.equal(k, v.cumsum(1).eq(1) & v):
+        raise AssertionError("an NMS edge case kept the wrong boxes")
+    # the full sort -> suppress -> select with 2048 candidates (four levels x
+    # pre_nms_topk 512, nms_topk 0 or 2048), on the card against the CPU
+    b2048, _ = nms_inputs(torch, 2, 2048, seed=27)
+    scores = torch.rand(2, 2048, generator=torch.Generator().manual_seed(28))
+    on_card = nms.nms_batched(b2048.to(dev), scores.to(dev), 0.6, max_outputs=64,
+                              score_threshold=0.05)
+    on_host = nms.nms_batched(b2048, scores, 0.6, max_outputs=64, score_threshold=0.05)
+    if not all(torch.equal(c.cpu(), h) for c, h in zip(on_card, on_host)):
+        raise AssertionError("nms_batched with 2048 candidates: the card and the CPU differ")
+    # an unaligned box tensor (contiguous, one float past a 16-byte boundary)
+    flat = torch.empty(boxes[:2].numel() + 1, device=dev)
+    shifted = flat[1:].view(2, 1024, 4).copy_(boxes[:2])
+    if not torch.equal(nms.nms_mask_cuda(shifted, valid[:2].contiguous(), 0.6), want[:2]):
+        raise AssertionError("NMS kernel on an unaligned box tensor differs")
+
     nms_ms = cuda_time_ms(lambda: nms.nms_mask_cuda(boxes, valid, 0.6), reps=30)
     nms_dev_ms = device_ms(lambda: nms.nms_mask_cuda(boxes, valid, 0.6), reps=30)
     nms_plain_ms = cuda_time_ms(lambda: nms.nms_mask_reference(boxes, valid, 0.6),
                                 reps=3, warmup=1)
-    # Greedy needs the IoU only of pairs (kept i, valid j > i): a box that is
-    # removed suppresses nothing. 14 operations per pair: 4 max/min, 2 sub,
-    # 2 clamp, 1 mul, add + sub, 1 max, 1 div, 1 compare.
-    v = valid.int()
-    valid_after = v.flip(1).cumsum(1).flip(1) - v
-    pairs = float((want.double() * valid_after.double()).sum())
-    nms_bound, nms_by = bound(boxes.numel() * 4 + valid.numel() * 2, 14 * pairs)
-    log(f"[1] nms kernel == plain at (B=128, N=1024) with class offsets, chain "
-        f"and invalid cases ({card}): kernel {nms_ms:.4f} ms (median of 30; device time "
-        f"{ms_text(nms_dev_ms)}, one trace of 30 calls), "
-        f"plain {nms_plain_ms:.2f} ms (median of 3), bound {nms_bound:.6f} ms ({nms_by}); "
+    nms_bound_ms, nms_by, pairs = nms_bound(valid, want)
+    log(f"[1] nms kernel == plain at (B=128, N=1024) with class offsets, the chain, an "
+        f"unaligned tensor and on {', '.join(kept_of)} ({card}): kernel {nms_ms:.4f} ms "
+        f"(median of 30; device time {ms_text(nms_dev_ms)}, one trace of 30 calls), "
+        f"plain {nms_plain_ms:.2f} ms (median of 3), bound {nms_bound_ms:.6f} ms ({nms_by}); "
         f"kept {int(want.sum())} of {int(valid.sum())} valid, {pairs:.0f} (kept, later valid) pairs")
+    # the kernel's own clock64 readings at the headline shape
+    _, cycles = nms.nms_mask_cuda(boxes, valid, 0.6, with_cycles=True)
+    med = cycles.double().median(dim=0).values.tolist()
+    blocks = boxes.shape[1] // 32
+    log(f"[1] nms kernel clock64 cycles per image at (128, 1024), median over the images "
+        f"({card}): whole CTA {med[0]:.0f}, prologue (load + in-block words) {med[1]:.0f}, "
+        f"the {blocks} owners' turns summed (a block against the boxes kept in the block "
+        f"before, its fixpoint, the publication) {med[2]:.0f}, {med[2] / blocks:.0f} a block, "
+        f"with {med[3]:.0f} fixpoint rounds in all; the rest is the barriers, the other "
+        f"warps' tests of later boxes against the boxes just kept and the write of the mask")
+    # two more shapes: a small batch (most SMs idle) and N = 2048
+    for b, n, seed in ((8, 1024, 1), (128, 2048, 24)):
+        bx, vd = nms_inputs(torch, b, n, seed=seed)
+        bx, vd = bx.to(dev), vd.to(dev)
+        k = nms.nms_mask_cuda(bx, vd, 0.6)
+        if not torch.equal(k, nms.nms_mask_reference(bx, vd, 0.6)):
+            raise AssertionError(f"NMS kernel != plain at ({b}, {n})")
+        ms = cuda_time_ms(lambda: nms.nms_mask_cuda(bx, vd, 0.6), reps=30)
+        dms = device_ms(lambda: nms.nms_mask_cuda(bx, vd, 0.6), reps=30)
+        bnd, by, prs = nms_bound(vd, k)
+        log(f"[1] nms kernel == plain at (B={b}, N={n}) ({card}): kernel {ms:.4f} ms (median "
+            f"of 30; device time {ms_text(dms)}), bound {bnd:.6f} ms ({by}); kept "
+            f"{int(k.sum())} of {int(vd.sum())} valid, {prs:.0f} pairs")
+    return dict(max_abs_err=nms_err, ms=nms_ms, plain_ms=nms_plain_ms,
+                bound_ms=nms_bound_ms, bound_by=nms_by, device_ms=nms_dev_ms)
+
+
+def phase_kernels(torch, nms, assign, card):
+    dev = torch.device("cuda")
+    nms_record = phase_nms(torch, nms, card)
 
     # --- auction: tracker-like problems through _build_benefit
     def problems(count, r, c, n, seed):
@@ -327,8 +471,7 @@ def phase_kernels(torch, nms, assign, card):
         f"{bids20:.1f} bids per problem); batch of 256 in one launch, several problems per "
         f"CTA, {batch_ms:.4f} ms (median of 20; device time {ms_text(batch_dev_ms)})")
     return {
-        "nms_mask": dict(max_abs_err=nms_err, ms=nms_ms, plain_ms=nms_plain_ms,
-                         bound_ms=nms_bound, bound_by=nms_by, device_ms=nms_dev_ms),
+        "nms_mask": nms_record,
         "auction": dict(max_abs_err=auc_err, ms=auc_ms, plain_ms=auc_plain_ms,
                         bound_ms=auc_bound, bound_by=auc_by, device_ms=auc_dev_ms),
     }
@@ -474,6 +617,35 @@ def phase_roi_align(torch, roi, card):
                        - roi.roi_align_kernel_reference(small, sboxes, **kw)).abs().max())
     if err_small > 1e-5:
         raise AssertionError(f"RoIAlign kernel on a 2-row map: max |err| {err_small}")
+    # channel counts no 16-byte vector divides (C=100: 8-byte vectors in bf16,
+    # 16 in f32; C=8; C=3: one channel a thread), boxes of zero width, with
+    # x2 < x1 and wholly outside the map among them, and a feature tensor one
+    # element past a 16-byte boundary
+    err_odd = 0.0
+    for c in (100, 8, 3):
+        base = torch.randn(3, 20, 30, c, generator=g).to(dev)
+        oboxes = roi_boxes(torch, 3, 16, (160, 240), seed=30 + c)
+        oboxes[:, 0] = torch.tensor([40.0, 30.0, 40.0, 90.0])        # zero width
+        oboxes[:, 1] = torch.tensor([120.0, 30.0, 60.0, 90.0])       # x2 < x1
+        oboxes[:, 2] = torch.tensor([-300.0, -200.0, -100.0, -50.0])  # outside, above left
+        oboxes[:, 3] = torch.tensor([400.0, 300.0, 500.0, 420.0])    # outside, below right
+        oboxes = oboxes.to(dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            aligned = base.to(dtype)
+            flat = torch.empty(aligned.numel() + 1, dtype=dtype, device=dev)
+            shifted = flat[1:].view(aligned.shape).copy_(aligned)
+            if shifted.data_ptr() % 16 == 0 or not shifted.is_contiguous():
+                raise AssertionError("the shifted feature tensor is aligned after all")
+            want = roi.roi_align_kernel_reference(aligned, oboxes, **kw).float()
+            for feats_c in (aligned, shifted):
+                diff = (roi.roi_align_cuda(feats_c, oboxes, **kw).float() - want).abs()
+                tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7 * want.abs() + 1e-6
+                if not (diff <= tol).all():
+                    raise AssertionError(f"RoIAlign kernel at C={c} {dtype}: max |err| "
+                                         f"{float(diff.max())}")
+                err_odd = max(err_odd, float(diff.max()))
+            if want[:, 2:4].abs().max() != 0:
+                raise AssertionError("boxes wholly outside the map pooled something")
     torch.cuda.synchronize()
 
     one16, oneb = fb[:1], boxes[:1]
@@ -495,16 +667,21 @@ def phase_roi_align(torch, roi, card):
     outputs = 64 * 7 * 7 * 128
     bnd, by = bound(one16.numel() * 2 + oneb.numel() * 4 + outputs * 2,
                     outputs * s_ * (8 * s_ + 4))
+    chunk_bnd, chunk_by = bound(fb.numel() * 2 + boxes.numel() * 4 + 128 * outputs * 2,
+                                128 * outputs * s_ * (8 * s_ + 4))
     log(f"[1] RoIAlign kernel vs plain at P3 56x84x128, 64 RoIs ({outside} of the chunk's "
         f"8192 partly outside), 7x7, s=2: f32 max |err| {err32:.2e}, bf16 over the chunk max "
-        f"|err| {err16:.2e} ({equal16:.4f} of outputs bit-equal), 2-row map {err_small:.2e} "
+        f"|err| {err16:.2e} ({equal16:.4f} of outputs bit-equal), 2-row map {err_small:.2e}, "
+        f"C = 100, 8 and 3 in f32 and bf16 with zero-width, inverted and outside boxes, on an "
+        f"aligned and an unaligned tensor, max |err| {err_odd:.2e} "
         f"({card}); one image bf16: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, matmul form "
         f"{mm_ms:.4f} ms, bound {bnd:.6f} ms ({by}); chunk of 128 images x 64 RoIs bf16: kernel "
-        f"{chunk_ms:.4f} ms, plain {chunk_plain_ms:.2f} ms, matmul form {chunk_mm_ms:.4f} ms; "
+        f"{chunk_ms:.4f} ms, plain {chunk_plain_ms:.2f} ms, matmul form {chunk_mm_ms:.4f} ms, "
+        f"bound {chunk_bnd:.6f} ms ({chunk_by}); "
         f"device time (one trace each) one image kernel {ms_text(dev_ms)}, "
         f"matmul form {ms_text(mm_dev_ms)}, chunk kernel {ms_text(chunk_dev_ms)}, matmul form "
         f"{ms_text(chunk_mm_dev_ms)}")
-    return dict(max_abs_err=max(err32, err16, err_small), ms=ms, plain_ms=plain_ms,
+    return dict(max_abs_err=max(err32, err16, err_small, err_odd), ms=ms, plain_ms=plain_ms,
                 bound_ms=bnd, bound_by=by, library_ms=None, device_ms=dev_ms)
 
 
@@ -663,6 +840,8 @@ def device_busy(torch, pipe, frames, chunk, card):
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         auction = [e for e in device if "auction_kernel" in e.name]
         auction_ms = sum(e.time_range.elapsed_us() for e in auction) / 1e3
+        nms_runs = [e for e in device if "nms_mask_kernel" in e.name]
+        nms_ms = sum(e.time_range.elapsed_us() for e in nms_runs) / 1e3
         # runtime calls that copy or wait, issued inside the tracker loop
         loop = [e for e in events if e.name == "tracker_loop"
                 and e.device_type == DeviceType.CPU][0].time_range
@@ -674,6 +853,7 @@ def device_busy(torch, pipe, frames, chunk, card):
         log(f"[3] traced chunk {rep} ({card}): device busy {busy_us / 1e3:.3f} ms of a "
             f"{span_us / 1e3:.3f} ms device span, idle share {1 - busy_us / span_us:.4f}; "
             f"auction kernel {auction_ms:.3f} ms of device time in {len(auction)} launches; "
+            f"nms kernel {nms_ms:.4f} ms in {len(nms_runs)}; "
             f"copy / wait runtime calls inside the tracker loop: {json.dumps(waits)}; "
             f"device copies in the chunk: {json.dumps(copies)}; most device time (ms): "
             + json.dumps([[k[:60], round(v, 3)] for k, v in top]))

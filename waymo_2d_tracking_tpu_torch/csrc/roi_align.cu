@@ -1,5 +1,5 @@
 // RoIAlign (aligned=True, sampling ratio s) as a direct bilinear gather, one
-// CTA per (image, RoI).
+// CTA per (image, RoI, group of output rows), a vector of channels per thread.
 //
 // Replaces the Pallas TPU kernel _roi_align_kernel of the JAX package's
 // ops/roi_align.py (launched by pallas_roi_align). Same contract and the same
@@ -15,36 +15,93 @@
 // accumulated in f32 in that order, each operation rounded on its own (_rn
 // intrinsics; the build passes -fmad=false), stored in the features' dtype.
 //
-// What bounds it on Hopper: the gathers. Each output reads 4 s^2 feature
-// values (16 at s = 2), which neighbouring bins share, so the bytes from
-// device memory are about the features under the RoIs and the rest hits L1/L2;
-// the arithmetic is a few operations per load. The TPU kernel staged the map
-// in VMEM and sliced an aligned 32-row window because a TPU cannot gather;
-// that layout constraint is not carried over. Here threads cover the
-// P * P * C outputs with the channel fastest, so the 32 lanes of a warp read
-// 32 consecutive channels of one NHWC pixel: every load is coalesced. The
-// per-sample indices and weights (2 * P * s of them) are computed once per
-// CTA into shared memory.
+// What bounds it on Hopper: by the count of what must move, bytes (the chunk
+// of 128 images reads 154 MB of bf16 features and writes 103 MB of pooled
+// output, 0.077 ms at 3.35 TB/s). Each output also reads 4 s^2 feature values
+// (16 at s = 2) that neighbouring bins share, so beyond the map read once
+// everything is L1/L2 traffic, load instructions and, with every product and
+// sum rounded on its own, about 56 arithmetic instructions an output channel:
+// as built the kernel is nearer its instruction issue than its bytes. The
+// TPU kernel staged the map in VMEM and sliced an aligned 32-row window
+// because a TPU cannot gather; that layout constraint is not carried over.
+// What the design does:
+//
+//   - a thread owns V consecutive channels of one output bin and keeps their
+//     accumulators in registers; every load and store moves V channels at
+//     once, 16 bytes where it can (V = 8 bf16 or 4 f32). V is the widest
+//     power of two that divides C and that the pointers' alignment allows,
+//     down to 1, so any C and any contiguous tensor is taken;
+//   - threads are laid out (channel group, output column): consecutive lanes
+//     read consecutive 16-byte pieces of one NHWC pixel, so a warp's load is
+//     whole 128-byte lines, and no thread divides to find its bin;
+//   - a RoI is split over its P output rows (grid (R, N, P)) while that is
+//     what fills the card: one image with 64 RoIs launches 448 CTAs. With
+//     many RoIs a CTA takes more rows, up to the whole RoI at the chunk shape,
+//     so that its rows find their shared feature pixels in L1; a CTA computes
+//     the sample tables of its rows and of all columns once into shared
+//     memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kMaxThreads = 256;
 constexpr int kMaxSamples = 128;   // P * s per axis
+constexpr int kSplitCtas = 2048;   // split RoIs over rows while there are fewer CTAs
 
 struct Sample {
   int lower;
   float w_lo, w_hi;
 };
 
-__device__ __forceinline__ float load(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(p[0]);
+template <int BYTES> struct Raw;
+template <> struct Raw<2> { using type = unsigned short; };
+template <> struct Raw<4> { using type = unsigned int; };
+template <> struct Raw<8> { using type = uint2; };
+template <> struct Raw<16> { using type = uint4; };
+
+// an element's storage bits and its value as a float
+template <typename T> struct Elem;
+template <> struct Elem<float> {
+  using bits = unsigned int;
+  static __device__ __forceinline__ float get(bits b) { return __uint_as_float(b); }
+  static __device__ __forceinline__ bits put(float v) { return __float_as_uint(v); }
+};
+template <> struct Elem<__nv_bfloat16> {
+  using bits = unsigned short;
+  static __device__ __forceinline__ float get(bits b) {
+    return __uint_as_float((unsigned int)b << 16);
+  }
+  static __device__ __forceinline__ bits put(float v) {
+    return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+  }
+};
+
+// V consecutive channels at p (aligned to V * sizeof(T)) as floats, one load
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* p, float (&v)[V]) {
+  using R = typename Raw<sizeof(T) * V>::type;
+  union {
+    R raw;
+    typename Elem<T>::bits elem[V];
+  } u;
+  u.raw = __ldg(reinterpret_cast<const R*>(p));
+#pragma unroll
+  for (int k = 0; k < V; ++k) v[k] = Elem<T>::get(u.elem[k]);
 }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* p, const float (&v)[V]) {
+  using R = typename Raw<sizeof(T) * V>::type;
+  union {
+    R raw;
+    typename Elem<T>::bits elem[V];
+  } u;
+#pragma unroll
+  for (int k = 0; k < V; ++k) u.elem[k] = Elem<T>::put(v[k]);
+  *reinterpret_cast<R*>(p) = u.raw;
+}
 
 // sample j = pi * s + a along one axis of `size` pixels
 __device__ __forceinline__ Sample sample(float start, float bin, int j, int s, int size) {
@@ -63,14 +120,18 @@ __device__ __forceinline__ Sample sample(float start, float bin, int j, int s, i
   return out;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+// blockDim = (channel groups, output columns), either looped over when the
+// RoI row has more of them; grid = (RoI, image, group of `rows` output rows)
+template <typename T, int V>
+__global__ void __launch_bounds__(kMaxThreads)
 roi_align_kernel(const T* __restrict__ feats, const float* __restrict__ boxes,
-                 T* __restrict__ out, int h, int w, int c, int r, int p, int s,
+                 T* __restrict__ out, int h, int w, int c, int r, int p, int s, int rows,
                  float spatial_scale) {
-  __shared__ Sample ys[kMaxSamples];
-  __shared__ Sample xs[kMaxSamples];
+  __shared__ Sample ys[kMaxSamples];   // the rows * s samples of this CTA's output rows
+  __shared__ Sample xs[kMaxSamples];   // the P * s samples of all columns
   const int roi = blockIdx.x, img = blockIdx.y;
+  const int pi0 = blockIdx.z * rows;
+  const int pi1 = pi0 + rows < p ? pi0 + rows : p;
   const float* box = boxes + ((size_t)img * r + roi) * 4;
   const float fx1 = __fsub_rn(__fmul_rn(box[0], spatial_scale), 0.5f);
   const float fy1 = __fsub_rn(__fmul_rn(box[1], spatial_scale), 0.5f);
@@ -78,37 +139,71 @@ roi_align_kernel(const T* __restrict__ feats, const float* __restrict__ boxes,
   const float fy2 = __fsub_rn(__fmul_rn(box[3], spatial_scale), 0.5f);
   const float bin_w = __fdiv_rn(__fsub_rn(fx2, fx1), (float)p);
   const float bin_h = __fdiv_rn(__fsub_rn(fy2, fy1), (float)p);
-  const int ps = p * s;
-  for (int j = threadIdx.x; j < ps; j += blockDim.x) {
-    ys[j] = sample(fy1, bin_h, j, s, h);
-    xs[j] = sample(fx1, bin_w, j, s, w);
-  }
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  const int nthreads = blockDim.x * blockDim.y;
+  for (int j = tid; j < p * s; j += nthreads) xs[j] = sample(fx1, bin_w, j, s, w);
+  for (int j = pi0 * s + tid; j < pi1 * s; j += nthreads)
+    ys[j - pi0 * s] = sample(fy1, bin_h, j, s, h);
   __syncthreads();
 
   const T* f = feats + (size_t)img * h * w * c;
-  T* o = out + ((size_t)img * r + roi) * p * p * c;
-  const int total = p * p * c;
-  for (int idx = threadIdx.x; idx < total; idx += blockDim.x) {
-    const int ch = idx % c;
-    const int q = idx / c;
-    const int pi = q / p, qi = q - pi * p;
-    float acc = 0.0f;
-    for (int b = 0; b < s; ++b) {
-      const Sample sx = xs[qi * s + b];
-      float g_lo = 0.0f, g_hi = 0.0f;
-      for (int a = 0; a < s; ++a) {
-        const Sample sy = ys[pi * s + a];
-        const T* row0 = f + ((size_t)sy.lower * w + sx.lower) * c + ch;
-        const T* row1 = row0 + (size_t)w * c;
-        g_lo = __fadd_rn(g_lo, __fadd_rn(__fmul_rn(sy.w_lo, load(row0)),
-                                         __fmul_rn(sy.w_hi, load(row1))));
-        g_hi = __fadd_rn(g_hi, __fadd_rn(__fmul_rn(sy.w_lo, load(row0 + c)),
-                                         __fmul_rn(sy.w_hi, load(row1 + c))));
+  const size_t row_stride = (size_t)w * c;
+  for (int pi = pi0; pi < pi1; ++pi) {
+    T* o = out + (((size_t)img * r + roi) * p + pi) * p * c;
+    for (int qi = threadIdx.y; qi < p; qi += blockDim.y) {
+      for (int ch = threadIdx.x * V; ch < c; ch += blockDim.x * V) {
+        float acc[V];
+#pragma unroll
+        for (int k = 0; k < V; ++k) acc[k] = 0.0f;
+        for (int b = 0; b < s; ++b) {
+          const Sample sx = xs[qi * s + b];
+          float g_lo[V], g_hi[V];
+#pragma unroll
+          for (int k = 0; k < V; ++k) g_lo[k] = g_hi[k] = 0.0f;
+          for (int a = 0; a < s; ++a) {
+            const Sample sy = ys[(pi - pi0) * s + a];
+            const T* row0 = f + ((size_t)sy.lower * w + sx.lower) * c + ch;
+            const T* row1 = row0 + row_stride;
+            float f00[V], f10[V], f01[V], f11[V];
+            load_vec<T, V>(row0, f00);
+            load_vec<T, V>(row1, f10);
+            load_vec<T, V>(row0 + c, f01);
+            load_vec<T, V>(row1 + c, f11);
+#pragma unroll
+            for (int k = 0; k < V; ++k) {
+              g_lo[k] = __fadd_rn(g_lo[k], __fadd_rn(__fmul_rn(sy.w_lo, f00[k]),
+                                                     __fmul_rn(sy.w_hi, f10[k])));
+              g_hi[k] = __fadd_rn(g_hi[k], __fadd_rn(__fmul_rn(sy.w_lo, f01[k]),
+                                                     __fmul_rn(sy.w_hi, f11[k])));
+            }
+          }
+#pragma unroll
+          for (int k = 0; k < V; ++k)
+            acc[k] = __fadd_rn(__fadd_rn(acc[k], __fmul_rn(sx.w_lo, g_lo[k])),
+                               __fmul_rn(sx.w_hi, g_hi[k]));
+        }
+        store_vec<T, V>(o + (size_t)qi * c + ch, acc);
       }
-      acc = __fadd_rn(__fadd_rn(acc, __fmul_rn(sx.w_lo, g_lo)), __fmul_rn(sx.w_hi, g_hi));
     }
-    store(o + idx, acc);
   }
+}
+
+template <typename T, int V>
+int launch(const void* feats, const float* boxes, void* out, int batch, int h, int w, int c,
+           int r, int p, int s, float spatial_scale, cudaStream_t stream) {
+  const int groups = c / V;
+  int bx = groups < kMaxThreads ? groups : kMaxThreads;
+  int by = kMaxThreads / bx;
+  by = by < p ? by : p;
+  // one output row a CTA while that is what fills the card; with many RoIs
+  // more rows each, up to the whole RoI, so that a CTA's rows share their
+  // feature pixels in L1 and the sample tables are computed once
+  int rows = (int)(((long long)r * batch * p) / kSplitCtas);
+  rows = rows < 1 ? 1 : (rows > p ? p : rows);
+  const dim3 block(bx, by), grid(r, batch, (p + rows - 1) / rows);
+  roi_align_kernel<T, V><<<grid, block, 0, stream>>>((const T*)feats, boxes, (T*)out, h, w, c, r,
+                                                     p, s, rows, spatial_scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -119,15 +214,25 @@ extern "C" int w2t_roi_align(const void* feats, const float* boxes, void* out,
   if (batch <= 0 || r <= 0 || c <= 0) return 0;
   if (h < 2 || w < 2 || p < 1 || s < 1 || p * s > kMaxSamples || batch > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid(r, batch);
   cudaStream_t st = (cudaStream_t)stream;
+  // the widest vector of channels, up to 16 bytes, that divides C and that
+  // both pointers are aligned to (every pixel and output bin starts at a
+  // multiple of C elements)
+  const int elem = bf16 ? 2 : 4;
+  const uintptr_t addr = reinterpret_cast<uintptr_t>(feats) | reinterpret_cast<uintptr_t>(out);
+  int v = 16 / elem;
+  while (v > 1 && (c % v != 0 || addr % (uintptr_t)(v * elem) != 0)) v >>= 1;
   if (bf16) {
-    roi_align_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        (const __nv_bfloat16*)feats, boxes, (__nv_bfloat16*)out, h, w, c, r, p, s,
-        spatial_scale);
-  } else {
-    roi_align_kernel<float><<<grid, kThreads, 0, st>>>(
-        (const float*)feats, boxes, (float*)out, h, w, c, r, p, s, spatial_scale);
+    switch (v) {
+      case 8: return launch<__nv_bfloat16, 8>(feats, boxes, out, batch, h, w, c, r, p, s, spatial_scale, st);
+      case 4: return launch<__nv_bfloat16, 4>(feats, boxes, out, batch, h, w, c, r, p, s, spatial_scale, st);
+      case 2: return launch<__nv_bfloat16, 2>(feats, boxes, out, batch, h, w, c, r, p, s, spatial_scale, st);
+      default: return launch<__nv_bfloat16, 1>(feats, boxes, out, batch, h, w, c, r, p, s, spatial_scale, st);
+    }
   }
-  return (int)cudaGetLastError();
+  switch (v) {
+    case 4: return launch<float, 4>(feats, boxes, out, batch, h, w, c, r, p, s, spatial_scale, st);
+    case 2: return launch<float, 2>(feats, boxes, out, batch, h, w, c, r, p, s, spatial_scale, st);
+    default: return launch<float, 1>(feats, boxes, out, batch, h, w, c, r, p, s, spatial_scale, st);
+  }
 }

@@ -1,13 +1,20 @@
 """Non-maximum suppression (counterpart of ``ops/nms.py``).
 
 ``nms_mask_batched`` is the greedy keep-mask over score-sorted boxes. A CUDA
-tensor launches the hand-written kernel ``csrc/nms.cu`` (one CTA per image;
-it replaces the Pallas ``_nms_kernel``); a CPU tensor runs
-``nms_mask_reference``, the plain PyTorch version of the same function, as
-JAX on the CPU runs the Pallas kernel's semantics in interpret mode. Both are
-exact greedy NMS, bit for bit equal to the JAX kernel: the IoU is
-``inter / max(union, 1e-7)`` with ``union = area_i + area_j - inter``,
-every operation rounded on its own.
+tensor launches the hand-written kernel ``csrc/nms.cu`` (it replaces the
+Pallas ``_nms_kernel``); a CPU tensor runs ``nms_mask_reference``, the plain
+PyTorch version of the same function, as JAX on the CPU runs the Pallas
+kernel's semantics in interpret mode. Both are exact greedy NMS, bit for bit
+equal to the JAX kernel: the IoU is ``inter / max(union, 1e-7)`` with
+``union = area_i + area_j - inter``, every operation rounded on its own.
+
+The kernel runs one CTA per image over blocks of 32 boxes: the block's owner
+warp resolves the block's live boxes by a fixpoint of ballots, then every
+live box of a later block is tested against the boxes just kept, dividing
+only where a multiplication cannot decide. It stores nothing per pair, so it
+takes any N up to ``MAX_N`` = 8192 (the boxes of one image stay in shared
+memory), a multiple of 32 or not; the JAX package pads any N to a multiple
+of 128. Boxes must be finite.
 
 ``nms_batched`` is the full per-image sort -> suppress -> top-K selection.
 ``lax.top_k`` returns equal values lowest index first; ``torch.topk`` does
@@ -22,7 +29,7 @@ import torch
 from waymo_2d_tracking_tpu_torch.ops import _cuda
 from waymo_2d_tracking_tpu_torch.ops.iou import pairwise_iou
 
-MAX_N = 1024  # the kernel's shared-memory bitmask holds up to 1024 boxes
+MAX_N = 8192  # the kernel keeps 20 bytes of shared memory per box
 
 
 def topk_stable(x: torch.Tensor, k: int):
@@ -54,9 +61,14 @@ def nms_mask_reference(boxes: torch.Tensor, valid: torch.Tensor,
 
 
 def nms_mask_cuda(boxes: torch.Tensor, valid: torch.Tensor,
-                  iou_threshold: float = 0.6) -> torch.Tensor:
+                  iou_threshold: float = 0.6, with_cycles: bool = False):
     """Launch ``csrc/nms.cu``: boxes (B, N, 4) f32, valid (B, N) bool, both
-    contiguous CUDA tensors; N <= 1024. Returns the (B, N) bool keep-mask."""
+    contiguous CUDA tensors; N <= ``MAX_N``. Returns the (B, N) bool
+    keep-mask; ``with_cycles`` launches the kernel's timed build and also
+    returns its ``clock64`` readings, (B, 4) int64: cycles of the whole CTA,
+    of its prologue (load and in-block words) and of the owners' turns summed
+    (a block's test against the boxes kept before it, then its fixpoint), and
+    the number of fixpoint rounds."""
     if boxes.device.type != "cuda" or valid.device != boxes.device:
         raise ValueError("nms_mask_cuda takes CUDA tensors on one device")
     if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
@@ -70,16 +82,19 @@ def nms_mask_cuda(boxes: torch.Tensor, valid: torch.Tensor,
         raise ValueError(f"the NMS kernel takes at most {MAX_N} boxes per image, got {n}")
     keep = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
     lib = _cuda.library("nms")
-    with torch.cuda.device(boxes.device):
-        err = lib.w2t_nms_mask(
-            ctypes.c_void_p(boxes.data_ptr()), ctypes.c_void_p(valid.data_ptr()),
+    args = [ctypes.c_void_p(boxes.data_ptr()), ctypes.c_void_p(valid.data_ptr()),
             ctypes.c_void_p(keep.data_ptr()), ctypes.c_int(b), ctypes.c_int(n),
-            ctypes.c_float(iou_threshold),
-            ctypes.c_void_p(_cuda.stream_handle(boxes.device)),
-        )
+            ctypes.c_float(iou_threshold)]
+    stream = ctypes.c_void_p(_cuda.stream_handle(boxes.device))
+    with torch.cuda.device(boxes.device):
+        if with_cycles:
+            cycles = torch.empty((b, 4), dtype=torch.int64, device=boxes.device)
+            err = lib.w2t_nms_mask_timed(*args, ctypes.c_void_p(cycles.data_ptr()), stream)
+        else:
+            err = lib.w2t_nms_mask(*args, stream)
     _cuda.check(err, "nms")
     nms_mask_cuda.launches += 1
-    return keep
+    return (keep, cycles) if with_cycles else keep
 
 
 nms_mask_cuda.launches = 0

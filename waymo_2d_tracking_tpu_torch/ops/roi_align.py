@@ -224,7 +224,12 @@ def roi_align_cuda(
     output_size: int = 7,
     sampling_ratio: int = 2,
 ) -> torch.Tensor:
-    """Launch ``csrc/roi_align.cu``: one CTA per (image, RoI). Returns
+    """Launch ``csrc/roi_align.cu``: one CTA per (image, RoI, group of output
+    rows: one row at one image, the whole RoI at a chunk of images), a thread
+    per (output column, vector of channels). The vector is the widest
+    power of two up to 16 bytes (8 bfloat16 or 4 float32 channels) that
+    divides C and that the tensors' addresses are aligned to, down to one
+    channel, so any C and any contiguous tensor is taken. Returns
     (N, R, P, P, C) in the features' dtype."""
     if features.device.type != "cuda" or boxes.device != features.device:
         raise ValueError("roi_align_cuda takes CUDA tensors on one device")
