@@ -18,11 +18,14 @@ Phases (any failed check raises, and the script exits non-zero):
    IoU lies within a few float32 steps of the threshold either side, at a
    negative and a zero threshold and on an unaligned tensor, timed at
    (128, 1024), (8, 1024) and (128, 2048), each beside its bound, with the
-   kernel's own ``clock64`` readings of its phases;
+   kernel's own ``clock64`` readings of its phases, and past the 8192 boxes
+   that fit shared memory at (1, 8193) and (2, 10240), timed beside their
+   bounds;
    auction row -> col equal on a batch of 256 tracker-like problems at n=64
-   and a few at each other n the kernel takes (32, 96, 128), and within
-   n * eps_min of scipy on a sample, timed for one problem and for the 256
-   in one launch; the top-k threshold
+   and a few at n = 32, 96, 128 (one warp a problem) and 256, 384 (one CTA a
+   problem), and within n * eps_min of scipy on a sample, timed for one
+   problem, for the 256 in one launch, at n = 256 and 384 and on config 4's
+   launch (5 cameras at n = 128), each beside its bound; the top-k threshold
    bit-equal at the headline's P3 size (N=14112, k=512, one vector and the
    chunk's 128 at once), at N=28800, on ties, on the large-magnitude snap
    case, at k = 1 and k = N, on an all-equal vector, on a geometric spread
@@ -38,18 +41,30 @@ Phases (any failed check raises, and the script exits non-zero):
 2. the trained fixtures in float32 with TF32 off through the whole slice:
    seed-5 and dense-clip MOTA/IDF1/IDSW floors, the ReID recovery gain, and
    the seed-5 clip with test-time augmentation (flip, scales 1.0 and 0.75)
-   against the JAX package's metrics, with the NMS and auction counters rising;
-3. three main paths at full width in bf16 with seeded random weights on
-   640x960 frames, each after a warm-up chunk, kernel counts set to 0 just
-   before each run and read just after: the headline preset
+   against the JAX package's metrics; both clips as two cameras of one
+   ``MultiCamPipeline.run_segments_group`` (JSONL read back), each camera
+   exactly its single-camera metrics; the seed-5 clip frame by frame through
+   ``OnlineTracker``, the chunked run's records; the NMS and auction
+   counters rising;
+3. six main paths at full width in bf16 with seeded random weights, kernel
+   counts set to 0 just before each run and read just after: on 640x960
+   frames after a warm-up chunk, the headline preset
    (``configs/headline.yaml``) and its CenterNet twin
    (``configs/headline_centernet.yaml``), 3 runs of 2 chunks of 128 frames
-   each, and the headline with TTA, 2 runs of 1 chunk. For each: frames/s,
+   each, and the headline with TTA, 2 runs of 1 chunk; for each frames/s,
    launch counts and the split of a chunk into letterbox / detector forward /
-   candidates + NMS + RoIAlign + ReID / tracker loop (CUDA events). For the
+   candidates + NMS + RoIAlign + ReID / tracker loop (CUDA events); for the
    headline, as a separate measurement, the device's busy share of 3 traced
    chunks (``torch.profiler``), each from its own trace, and the auction
-   and NMS kernels' device time in each.
+   and NMS kernels' device time in each. Then ``config4_multicam``
+   (``configs/config4_multicam.yaml``, 5 cameras of 1280x1920 frames
+   through ``MultiCamPipeline.run_segments_group``, a warm-up chunk and 2
+   runs of 4 chunks of 8 frames: camera-frames/s, peak memory, the split,
+   launches per chunk, which must be 1 NMS at B = 40 and 8 auction at P = 5),
+   ``online_rig`` (``OnlineMultiCamTracker`` on the same config and frames,
+   32 ticks after a warm-up: latency percentiles, 1 NMS and 1 auction
+   launch a tick) and ``online_headline`` (``OnlineTracker`` on the
+   headline, 64 frames of 640x960 after a warm-up).
 
 The last two lines are the kernels' JSON record and the device record. It
 imports no JAX and nothing of the JAX package.
@@ -101,6 +116,26 @@ HEADLINE_CENTERNET = {
     **HEADLINE,
     "detector": {**HEADLINE["detector"], "head_family": "centernet", "centernet_level": 3},
 }
+
+# configs/config4_multicam.yaml (BASELINE config 4: 5 cameras, one shared
+# detector batch, per-camera trackers): the default ResNet-50 / FPN P3-P7
+# detector at 640x960 with ReID 128, the auction tracker at S = D = 128,
+# chunk 8; a CPU test pins it to the yaml file.
+CONFIG4 = {
+    "detector": {"image_size": [640, 960], "embed_dim": 128},
+    "tracker": {"embed_dim": 128, "appearance_weight": 0.3},
+    "pipeline": {
+        "cameras": ["FRONT", "FRONT_LEFT", "FRONT_RIGHT", "SIDE_LEFT", "SIDE_RIGHT"],
+        "chunk_frames": 8,
+    },
+}
+
+# Seeded random ResNet-50 weights score at most ~0.23, under config 4's
+# tracker gates (score 0.5, birth 0.6): no detection would reach the tracker
+# and every auction problem would be empty. The config-4 runs lower these
+# two gates so the tracker births, associates and solves real problems; a
+# cut of thresholds, not of any width.
+CONFIG4_RANDOM_WEIGHT_GATES = {"score_threshold": 0.1, "birth_score_threshold": 0.15}
 
 # Published H100 SXM peaks (dense): HBM bandwidth, and float32 outside the
 # tensor cores (every kernel here does scalar f32 / integer work).
@@ -382,8 +417,29 @@ def phase_nms(torch, nms, card):
         log(f"[1] nms kernel == plain at (B={b}, N={n}) ({card}): kernel {ms:.4f} ms (median "
             f"of 30; device time {ms_text(dms)}), bound {bnd:.6f} ms ({by}); kept "
             f"{int(k.sum())} of {int(vd.sum())} valid, {prs:.0f} pairs")
+    # past the shared-memory size (8192) the kernel keeps its per-box state in
+    # device memory: N = 8193 (one box past it) and 10240 (flip TTA at two
+    # scales, 4 views x 2560 candidates, nms_topk 0)
+    cases = []
+    for b, n, seed in ((1, 8193, 31), (2, 10240, 32)):
+        bx, vd = nms_inputs(torch, b, n, seed=seed)
+        bx, vd = bx.to(dev), vd.to(dev)
+        k = nms.nms_mask_cuda(bx, vd, 0.6)
+        w = nms.nms_mask_reference(bx, vd, 0.6)
+        torch.cuda.synchronize()
+        if not torch.equal(k, w):
+            raise AssertionError(f"NMS kernel != plain at ({b}, {n}): "
+                                 f"{int((k != w).sum())} entries differ")
+        nms_err = max(nms_err, float((k.int() - w.int()).abs().max()))
+        ms = cuda_time_ms(lambda: nms.nms_mask_cuda(bx, vd, 0.6), reps=20)
+        dms = device_ms(lambda: nms.nms_mask_cuda(bx, vd, 0.6), reps=20)
+        bnd, by, prs = nms_bound(vd, k)
+        cases.append(dict(shape=f"B={b} N={n}", ms=ms, device_ms=dms, bound_ms=bnd, bound_by=by))
+        log(f"[1] nms kernel (device-memory variant) == plain at (B={b}, N={n}) ({card}): kernel "
+            f"{ms:.4f} ms (median of 20; device time {ms_text(dms)}), bound {bnd:.6f} ms ({by}); "
+            f"kept {int(k.sum())} of {int(vd.sum())} valid, {prs:.0f} pairs")
     return dict(max_abs_err=nms_err, ms=nms_ms, plain_ms=nms_plain_ms,
-                bound_ms=nms_bound_ms, bound_by=nms_by, device_ms=nms_dev_ms)
+                bound_ms=nms_bound_ms, bound_by=nms_by, device_ms=nms_dev_ms, cases=cases)
 
 
 def phase_kernels(torch, nms, assign, card):
@@ -409,7 +465,18 @@ def phase_kernels(torch, nms, assign, card):
 
     kw = dict(eps_scale=0.2, eps_min=1e-2, max_iters=4096)
     auc_err = 0.0
-    for count, n, seed in ((256, 64, 3), (8, 128, 4), (8, 32, 13), (8, 96, 14)):
+    cases = []
+
+    def auction_bound(ben, bids):
+        # Only unassigned rows bid. Per bid: the row's scan of n entries (1
+        # sub, 2 compares each), 2 operations for the bid itself and 2
+        # compares where its column takes the highest bid.
+        pn, n = ben.shape[0], ben.shape[-1]
+        return bound(pn * (n * n * 4 + 4 + 1 + n * 4), (3 * n + 4) * float(bids.double().sum()))
+
+    # n = 256 and 384: past the one-warp kernel's 128, one CTA per problem
+    for count, n, seed in ((256, 64, 3), (8, 128, 4), (8, 32, 13), (8, 96, 14),
+                           (5, 256, 15), (3, 384, 16)):
         ben, eps0, feas, costs, valids = problems(count, n - 7, n - 20, n, seed)
         feas[0] = False                        # one infeasible problem per batch
         got = assign.auction_kernel_cuda(ben, eps0, feas, **kw)
@@ -442,6 +509,31 @@ def phase_kernels(torch, nms, assign, card):
             f"{float(per_round[1]):.3f}, with at most 4 {float(per_round[1:5].sum()):.3f}")
         if n == 64:
             batch = (ben, eps0, feas, rounds, bids)
+        if n > 128:
+            ms = cuda_time_ms(lambda: assign.auction_kernel_cuda(ben, eps0, feas, **kw), reps=10)
+            dms = device_ms(lambda: assign.auction_kernel_cuda(ben, eps0, feas, **kw), reps=5)
+            bnd, by = auction_bound(ben, bids)
+            cases.append(dict(shape=f"P={count} n={n} (one CTA a problem)", ms=ms, device_ms=dms,
+                              bound_ms=bnd, bound_by=by))
+            log(f"[1] auction kernel at n={n}, {count} problems in one launch ({card}): "
+                f"{ms:.4f} ms (median of 10; device time {ms_text(dms)}), bound {bnd:.7f} ms "
+                f"({by}); rounds {rounds.tolist()}")
+
+    # config 4's launch: the 5 cameras' stage-1 problems at S = D = 128 in one
+    # launch (one warp each)
+    ben, eps0, feas, _, _ = problems(5, 128, 128, 128, 17)
+    got = assign.auction_kernel_cuda(ben, eps0, feas, **kw)
+    want, rounds, bids, _ = assign.auction_kernel_reference(ben, eps0, feas, **kw)
+    if not torch.equal(got, want):
+        raise AssertionError("auction kernel != plain on the config-4 launch (P=5, n=128)")
+    ms = cuda_time_ms(lambda: assign.auction_kernel_cuda(ben, eps0, feas, **kw), reps=20)
+    dms = device_ms(lambda: assign.auction_kernel_cuda(ben, eps0, feas, **kw), reps=10)
+    bnd, by = auction_bound(ben, bids)
+    cases.append(dict(shape="P=5 n=128 (config 4, one warp a problem)", ms=ms, device_ms=dms,
+                      bound_ms=bnd, bound_by=by))
+    log(f"[1] auction kernel == plain on the config-4 launch (P=5 cameras, n=128) ({card}): "
+        f"{ms:.4f} ms (median of 20; device time {ms_text(dms)}), bound {bnd:.7f} ms ({by}); "
+        f"rounds {rounds.tolist()}, bids {bids.tolist()}")
 
     ben, eps0, feas, rounds, bids = batch
     # the 256 problems in one launch, several warps (problems) per CTA
@@ -458,12 +550,8 @@ def phase_kernels(torch, nms, assign, card):
     auc_dev_ms = device_ms(lambda: run_singles(assign.auction_kernel_cuda), reps=5, per=20)
     auc_plain_ms = cuda_time_ms(lambda: run_singles(assign.auction_kernel_reference),
                                 reps=3, warmup=1) / 20
-    n = ben.shape[-1]
-    # Only unassigned rows bid. Per bid: the row's scan of n entries (1 sub,
-    # 2 compares each), 2 operations for the bid itself and 2 compares where
-    # its column takes the highest bid.
     bids20 = float(bids[1:21].double().mean())
-    auc_bound, auc_by = bound(n * n * 4 + 4 + 1 + n * 4, (3 * n + 4) * bids20)
+    auc_bound, auc_by = auction_bound(ben[:1], bids[1:21].double().mean()[None])
     log(f"[1] auction single n=64 launch (main-path shape, mean of 20 problems; {card}): "
         f"kernel {auc_ms:.4f} ms (CUDA events over the 20 launches back to back, median of "
         f"20; device time {ms_text(auc_dev_ms)}), plain {auc_plain_ms:.2f} ms, library none, "
@@ -473,7 +561,7 @@ def phase_kernels(torch, nms, assign, card):
     return {
         "nms_mask": nms_record,
         "auction": dict(max_abs_err=auc_err, ms=auc_ms, plain_ms=auc_plain_ms,
-                        bound_ms=auc_bound, bound_by=auc_by, device_ms=auc_dev_ms),
+                        bound_ms=auc_bound, bound_by=auc_by, device_ms=auc_dev_ms, cases=cases),
     }
 
 
@@ -698,7 +786,16 @@ def records_to_frames(np, records, num_frames):
             for i, b in frames]
 
 
+def scratch_dir() -> str:
+    """A directory for the files a phase writes, inside the checkout."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out", "chip_smoke")
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
 def phase_fixtures(np, torch, nms, assign):
+    import tempfile
+
     from waymo_2d_tracking_tpu_torch.config import (
         Config, DetectorConfig, PipelineConfig, TrackerConfig,
     )
@@ -706,53 +803,98 @@ def phase_fixtures(np, torch, nms, assign):
         SyntheticClipConfig, render_video_clip,
     )
     from waymo_2d_tracking_tpu_torch.eval.mot import evaluate_mot, gt_to_frames
+    from waymo_2d_tracking_tpu_torch.io_out.submission import read_jsonl
+    from waymo_2d_tracking_tpu_torch.pipeline.multicam import MultiCamPipeline
+    from waymo_2d_tracking_tpu_torch.pipeline.online import OnlineTracker
     from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentFrames, SegmentPipeline
     from waymo_2d_tracking_tpu_torch.weights import fixture_state_dict
 
     nms.nms_mask_cuda.launches = 0
     assign.auction_kernel_cuda.launches = 0
 
+    def config(det_kw, pipe_kw=None, **trk_kw):
+        return Config(detector=DetectorConfig(**det_kw),
+                      tracker=TrackerConfig(**{**PIXELS_TRK, **trk_kw}),
+                      pipeline=PipelineConfig(chunk_frames=16, interp_max_gap=0,
+                                              **(pipe_kw or {})))
+
     def run(det_kw, clip, state_dict, pipe_kw=None, **trk_kw):
         frames, gt = render_video_clip(clip)
-        cfg = Config(detector=DetectorConfig(**det_kw),
-                     tracker=TrackerConfig(**{**PIXELS_TRK, **trk_kw}),
-                     pipeline=PipelineConfig(chunk_frames=16, interp_max_gap=0,
-                                             **(pipe_kw or {})))
+        cfg = config(det_kw, pipe_kw, **trk_kw)
         pipe = SegmentPipeline(cfg, state_dict, device="cuda")
         records, _ = pipe.run_segment(SegmentFrames(
             "fixture", 1, list(range(clip.num_frames)), frames))
-        return evaluate_mot(gt_to_frames(gt), records_to_frames(np, records, clip.num_frames))
+        m = evaluate_mot(gt_to_frames(gt), records_to_frames(np, records, clip.num_frames))
+        return m, records, frames, gt
 
     sd = fixture_state_dict("pixels_detector")
-    m = run(PIXELS_DET, SyntheticClipConfig(num_frames=80, num_objects=8,
-                                            image_size=(1024, 1536), seed=5),
-            sd, birth_iou_threshold=0.3)
-    log(f"[2] seed-5 clip: {json.dumps(m.as_dict())}")
-    if not (m.mota >= 0.78 and m.idf1 >= 0.87 and m.num_idsw <= 6 and m.mostly_tracked >= 7):
+    seed5 = SyntheticClipConfig(num_frames=80, num_objects=8, image_size=(1024, 1536), seed=5)
+    dense = SyntheticClipConfig(num_frames=80, num_objects=14, image_size=(1024, 1536), seed=11)
+    m5, rec5, frames5, gt5 = run(PIXELS_DET, seed5, sd, birth_iou_threshold=0.3)
+    log(f"[2] seed-5 clip: {json.dumps(m5.as_dict())}")
+    if not (m5.mota >= 0.78 and m5.idf1 >= 0.87 and m5.num_idsw <= 6 and m5.mostly_tracked >= 7):
         raise AssertionError("seed-5 floors (0.78 / 0.87 / <=6 / >=7) missed")
-    m = run(PIXELS_DET, SyntheticClipConfig(num_frames=80, num_objects=8,
-                                            image_size=(1024, 1536), seed=5),
-            sd, pipe_kw=dict(tta_flip=True, tta_scales=(1.0, 0.75)), birth_iou_threshold=0.3)
+    m, _, _, _ = run(PIXELS_DET, seed5, sd, pipe_kw=dict(tta_flip=True, tta_scales=(1.0, 0.75)),
+                     birth_iou_threshold=0.3)
     got = m.as_dict()
     log(f"[2] seed-5 clip with TTA (flip, scales 1.0 and 0.75): {json.dumps(got)}; JAX "
         f"reference {json.dumps(SEED5_TTA_REF)}, tolerance {json.dumps(SEED5_TTA_TOL)}")
     if any(abs(got[key] - ref) > SEED5_TTA_TOL[key] for key, ref in SEED5_TTA_REF.items()):
         raise AssertionError("seed-5 TTA metrics differ from the JAX reference")
-    m = run(PIXELS_DET, SyntheticClipConfig(num_frames=80, num_objects=14,
-                                            image_size=(1024, 1536), seed=11),
-            sd, birth_iou_threshold=0.3)
-    log(f"[2] dense clip: {json.dumps(m.as_dict())}")
-    if not (m.mota >= 0.42 and m.idf1 >= 0.66 and m.num_idsw <= 7):
+    md, _, frames_d, gt_d = run(PIXELS_DET, dense, sd, birth_iou_threshold=0.3)
+    log(f"[2] dense clip: {json.dumps(md.as_dict())}")
+    if not (md.mota >= 0.42 and md.idf1 >= 0.66 and md.num_idsw <= 7):
         raise AssertionError("dense-clip floors (0.42 / 0.66 / <=7) missed")
+
+    # config 4's composition of the two clips (tests/golden/test_pixels_to_mota.py
+    # test_multicam_pixels_to_mota_floor): seed 5 as camera 1, the dense clip
+    # as camera 2, one shared detector batch of 32 images a chunk, the
+    # camera-batched tracker, JSONL written and read back; each camera must
+    # give exactly its single-camera metrics
+    cfg = config(PIXELS_DET, birth_iou_threshold=0.3)
+    ts = list(range(seed5.num_frames))
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as out:
+        stats = MultiCamPipeline(cfg, num_cams=2, state_dict=sd, device="cuda").run_segments_group(
+            [SegmentFrames("mc", 1, ts, frames5), SegmentFrames("mc", 2, ts, frames_d)], out)
+        per_cam = {cam: evaluate_mot(gt_to_frames(gt), records_to_frames(
+            np, read_jsonl(os.path.join(out, f"mc_{cam}.jsonl")), seed5.num_frames))
+            for cam, gt in ((1, gt5), (2, gt_d))}
+    keys = ("mota", "idf1", "num_idsw", "mostly_tracked")
+    log(f"[2] multicam (seed 5 + dense, chunk 16, one 32-image detector batch): camera 1 "
+        f"{json.dumps(per_cam[1].as_dict())}; camera 2 {json.dumps(per_cam[2].as_dict())}; "
+        f"stats {json.dumps(stats)}")
+    for cam, single in ((1, m5), (2, md)):
+        if any(per_cam[cam].as_dict()[k] != single.as_dict()[k] for k in keys):
+            raise AssertionError(f"multicam camera {cam} differs from its single-camera run")
+
+    # the seed-5 clip one frame at a time through the online session: the
+    # records of the chunked run
+    sess = OnlineTracker(cfg, sd, device="cuda", context_name="fixture", camera_name=1)
+    sess.warmup(tuple(frames5.shape[1:3]))
+    online = []
+    for t in range(seed5.num_frames):
+        online.extend(sess.step(frames5[t], t))
+    key = lambda r: (r.timestamp_micros, r.object_id, r.object_type)   # noqa: E731
+    a, b = sorted(online, key=key), sorted(rec5, key=key)
+    if [key(r) for r in a] != [key(r) for r in b]:
+        raise AssertionError("online seed-5 records (ids, types, frames) differ from the chunked run")
+    diff = max((abs(getattr(x, f) - getattr(y, f)) for x, y in zip(a, b)
+                for f in ("center_x", "center_y", "length", "width", "score")), default=0.0)
+    lat = sess.latency_stats()
+    log(f"[2] online seed-5 clip frame by frame: {len(a)} records, the chunked run's ids, types "
+        f"and frames; max |box or score difference| {diff:.3e} (detector batch 1 against 16); "
+        f"latency {json.dumps(lat)}")
+    if diff > 1e-2:
+        raise AssertionError(f"online seed-5 records differ from the chunked run by {diff}")
 
     reid_det = {**PIXELS_DET, "embed_dim": 32}
     clip = SyntheticClipConfig(num_frames=100, num_objects=6, image_size=(1024, 1536),
                                seed=29, occlusion_gap=(30, 52), texture_amp=0.25)
     sd = fixture_state_dict("pixels_detector_reid")
     base = dict(embed_dim=32, max_lost_age=30, birth_iou_threshold=0.3)
-    off = run(reid_det, clip, sd, **base)
+    off = run(reid_det, clip, sd, **base)[0]
     on = run(reid_det, clip, sd, **base, reid_recovery=True, appearance_gate=0.3,
-             gallery_size=4)
+             gallery_size=4)[0]
     log(f"[2] reid recovery off idf1 {off.idf1:.4f} idsw {off.num_idsw}; "
         f"on idf1 {on.idf1:.4f} idsw {on.num_idsw}")
     if not (on.idf1 >= off.idf1 + 0.05 and on.num_idsw <= off.num_idsw):
@@ -884,12 +1026,11 @@ def phase_main_path(np, torch, counters, card, name, preset, frames, chunks, run
     seg = SegmentFrames(name, 1, list(range(chunks * chunk)), frames[chunk:(chunks + 1) * chunk])
     fps_runs, launch_runs = [], []
     for _ in range(runs):
-        for fn in counters.values():
-            fn.launches = 0
+        zero_counts(counters)
         t0 = time.perf_counter()
         records, _ = pipe.run_segment(seg)
         wall = time.perf_counter() - t0
-        launch_runs.append({k: fn.launches for k, fn in counters.items()})
+        launch_runs.append(read_counts(counters))
         fps_runs.append(seg.num_frames / wall)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"[3] {name} main path, {runs} runs of {seg.num_frames} frames: frames/s "
@@ -959,7 +1100,187 @@ def phase_headlines(np, torch, counters, card):
                                               HEADLINE_CENTERNET, frames, chunks=2, runs=3),
         "headline_tta": phase_main_path(np, torch, counters, card, "headline_tta", tta, frames,
                                         chunks=1, runs=2),
-    }
+    }, frames
+
+
+def render_cameras(np, cams: int, frames: int, seed0: int, hw=(640, 960), upscale: int = 2):
+    """(frames, cams, H * upscale, W * upscale, 3) uint8: one rendered clip a
+    camera (seed0 + camera), upscaled on the host by pixel repetition (a
+    1280x1920 render costs about 0.27 s a frame on the host)."""
+    from waymo_2d_tracking_tpu_torch.data.synthetic import SyntheticClipConfig, render_video_clip
+
+    out = np.empty((frames, cams, hw[0] * upscale, hw[1] * upscale, 3), np.uint8)
+    for c in range(cams):
+        clip, _ = render_video_clip(SyntheticClipConfig(num_frames=frames, num_objects=12,
+                                                        seed=seed0 + c), render_hw=hw)
+        out[:, c] = clip.repeat(upscale, axis=1).repeat(upscale, axis=2)
+    return out
+
+
+def stages_of(cfg) -> int:
+    """Association stages a tracker step runs, each one auction launch."""
+    t = cfg.tracker
+    return 1 + (t.byte_low_threshold > 0) + (t.reid_recovery and t.embed_dim > 0)
+
+
+def zero_counts(counters):
+    for fn in counters.values():
+        fn.launches = 0
+        fn.last_shape = None
+
+
+def read_counts(counters):
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def latency_text(stats) -> str:
+    return (f"p50 {stats['p50_ms']:.3f} ms, p90 {stats['p90_ms']:.3f}, p99 "
+            f"{stats['p99_ms']:.3f}, max {stats['max_ms']:.3f} over {stats['count']}")
+
+
+def phase_config4(np, torch, counters, card, frames):
+    """BASELINE config 4 at full width: 5 cameras of 1280x1920 frames through
+    ``MultiCamPipeline.run_segments_group`` (one 40-image detector batch a
+    chunk, the camera-batched tracker, JSONL and gallery sidecars), a warm-up
+    chunk, then 2 runs of 4 chunks."""
+    import tempfile
+
+    from waymo_2d_tracking_tpu_torch.config import Config, _update
+    from waymo_2d_tracking_tpu_torch.data.preprocess import letterbox_batch
+    from waymo_2d_tracking_tpu_torch.pipeline.multicam import MultiCamPipeline, split_cameras
+    from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentFrames
+    from waymo_2d_tracking_tpu_torch.tracker import init_multicam_state, track_segment
+
+    cfg = _update(Config(), {**CONFIG4, "tracker": {**CONFIG4["tracker"],
+                                                    **CONFIG4_RANDOM_WEIGHT_GATES}})
+    chunk, cams = cfg.pipeline.chunk_frames, len(cfg.pipeline.cameras)
+    stages = stages_of(cfg)
+    pipe = MultiCamPipeline(cfg, num_cams=cams, device="cuda", seed=0)
+
+    def group(lo, hi):
+        return [SegmentFrames("config4", cam + 1, list(range(hi - lo)), frames[lo:hi, cam])
+                for cam in range(cams)]
+
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as out:
+        pipe.run_segments_group(group(0, chunk), out)                 # warm-up chunk
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        chunks, rates, launch_runs = 4, [], []
+        for _ in range(2):
+            zero_counts(counters)
+            t0 = time.perf_counter()
+            stats = pipe.run_segments_group(group(chunk, chunk * (chunks + 1)), out)
+            wall = time.perf_counter() - t0
+            launch_runs.append(read_counts(counters))
+            rates.append(chunks * chunk * cams / wall)
+            shapes = (counters["nms_mask"].last_shape, counters["auction"].last_shape)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        side = np.load(os.path.join(out, "config4_3.gallery.npz"))
+    per_chunk = {k: v / chunks for k, v in launch_runs[0].items()}
+    log(f"[3] config4_multicam main path (5 cameras at 1280x1920, chunk {chunk}), 2 runs of "
+        f"{chunks} chunks: camera-frames/s {json.dumps(rates)} ({card}); peak device memory "
+        f"{peak_gb:.2f} GB; records per camera {json.dumps([s['records'] for s in stats])}; "
+        f"launches per run {json.dumps(launch_runs)}, per chunk {json.dumps(per_chunk)}; last "
+        f"NMS launch (B, N) {shapes[0]}, last auction launch (P, n) {shapes[1]}")
+    want = {"nms_mask": 1, "auction": chunk * stages}
+    if any(per_chunk[k] != v for k, v in want.items()) or shapes[0][0] != chunk * cams \
+            or shapes[1] != (cams, 128):
+        raise AssertionError(f"config4_multicam: expected per chunk {want}, NMS at B={chunk * cams} "
+                             f"and the auction at P={cams}, n=128; got {per_chunk}, {shapes}")
+    if side["track_id"].shape != (128,) or side["embed"].shape != (128, 128):
+        raise AssertionError(f"config4_multicam sidecar shapes {side['embed'].shape}")
+
+    # the split of one chunk, CUDA events, median of 3
+    runner = pipe.detector
+    block = frames[chunk:2 * chunk]
+    runs = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        flat = torch.from_numpy(block.reshape((chunk * cams,) + block.shape[2:])).to("cuda")
+        images, _ = letterbox_batch(flat, tuple(block.shape[2:4]), cfg.detector.image_size)
+        ev[1].record()
+        head_out, p_feats = runner.forward(images)
+        ev[2].record()
+        dets = runner.postprocess(head_out, p_feats)
+        ev[3].record()
+        states, outs = track_segment(init_multicam_state(cfg, cams, device="cuda"),
+                                     split_cameras(dets, chunk, cams), cfg.tracker)
+        ev[4].record()
+        ev[4].synchronize()
+        runs.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
+    names = ("letterbox_ms", "detector_forward_ms", "candidates_topk_nms_roi_align_reid_ms",
+             "tracker_loop_ms")
+    split = {k: statistics.median(r[i] for r in runs) for i, k in enumerate(names)}
+    log(f"[3] config4_multicam: {chunk}-frame chunk of {cams} cameras ({chunk * cams} images) "
+        f"split, median of 3 ({card}): {json.dumps(split)}; each run: {json.dumps(runs)}")
+    d, o = dets.to_numpy(), outs.to_numpy()
+    if not (np.isfinite(d.boxes).all() and np.isfinite(d.embeds).all()
+            and np.isfinite(o.boxes).all()) or o.valid.shape != (chunk, cams, 128):
+        raise AssertionError("config4_multicam outputs are not finite or have the wrong shape")
+    live = (states.status != 0).sum(-1).tolist()
+    log(f"[3] config4_multicam outputs finite; valid detections per image "
+        f"{d.valid.sum(1).mean():.2f}, above the lowered tracker gate "
+        f"{(d.valid & (d.scores >= cfg.tracker.score_threshold)).sum(1).mean():.2f}, max score "
+        f"{d.scores.max():.3f} (random weights); after one chunk ids born per camera "
+        f"{json.dumps(states.next_id.tolist())}, live slots per camera {json.dumps(live)}")
+    if min(states.next_id.tolist()) == 0:
+        raise AssertionError("config4_multicam: a camera's tracker never birthed a track")
+    del pipe
+    torch.cuda.empty_cache()
+    return launch_runs[0]
+
+
+def phase_online(np, torch, counters, card, name, session, frames, ticks, per_tick):
+    """``ticks`` steps of an online session after its warm-up, counts set to 0
+    just before and read just after; per_tick: the launches one step must
+    make."""
+    session.warmup(tuple(frames.shape[-3:-1]))
+    torch.cuda.synchronize()
+    zero_counts(counters)
+    records = 0
+    for t in range(ticks):
+        records += len(session.step(frames[t] if frames.ndim == 4 else list(frames[t]), t))
+    counts = read_counts(counters)
+    shapes = (counters["nms_mask"].last_shape, counters["auction"].last_shape)
+    stats = session.latency_stats()
+    log(f"[3] {name}: {ticks} steps after a warm-up ({card}): latency per step "
+        f"{latency_text(stats)}; {json.dumps(stats)}; records {records}; launches "
+        f"{json.dumps(counts)}, per step {json.dumps({k: v / ticks for k, v in counts.items()})}; "
+        f"last NMS launch (B, N) {shapes[0]}, last auction launch (P, n) {shapes[1]}")
+    if any(counts[k] != v * ticks for k, v in per_tick.items()):
+        raise AssertionError(f"{name}: expected {per_tick} launches per step, got {counts}")
+    return counts
+
+
+def phase_new_paths(np, torch, counters, card, headline_frames):
+    from waymo_2d_tracking_tpu_torch.config import Config, _update
+    from waymo_2d_tracking_tpu_torch.pipeline.online import OnlineMultiCamTracker, OnlineTracker
+
+    t0 = time.perf_counter()
+    frames = render_cameras(np, 5, 40, seed0=40)
+    log(f"[3] rendered 5 cameras x {frames.shape[0]} frames at 640x960, upscaled to "
+        f"{frames.shape[2]}x{frames.shape[3]} on the host in {time.perf_counter() - t0:.1f} s")
+    paths = {"config4_multicam": phase_config4(np, torch, counters, card, frames)}
+
+    cfg4 = _update(Config(), {**CONFIG4, "tracker": {**CONFIG4["tracker"],
+                                                     **CONFIG4_RANDOM_WEIGHT_GATES}})
+    rig = OnlineMultiCamTracker(cfg4, camera_names=[1, 2, 3, 4, 5], device="cuda", seed=0)
+    paths["online_rig"] = phase_online(np, torch, counters, card, "online_rig", rig, frames, 32,
+                                       {"nms_mask": 1, "auction": stages_of(cfg4)})
+    if counters["auction"].last_shape != (5, 128) or counters["nms_mask"].last_shape[0] != 5:
+        raise AssertionError("online_rig: the tick's launches are not one rig-wide launch")
+    del rig
+    del frames
+    torch.cuda.empty_cache()
+
+    cfg = _update(Config(), {**HEADLINE, "pipeline": {**HEADLINE["pipeline"],
+                                                      "decode_scale_denom": 1}})
+    sess = OnlineTracker(cfg, device="cuda", seed=0)
+    paths["online_headline"] = phase_online(np, torch, counters, card, "online_headline", sess,
+                                            headline_frames, 64,
+                                            {"nms_mask": 1, "auction": stages_of(cfg)})
+    return paths
 
 
 def main() -> int:
@@ -1000,7 +1321,8 @@ def main() -> int:
     log(f"[1] launches in phase 1 (comparisons and timing, not a main path): "
         f"{json.dumps({k: fn.launches for k, fn in counters.items()})}")
     phase_fixtures(np, torch, nms, assign)
-    paths = phase_headlines(np, torch, counters, smi)
+    paths, headline_frames = phase_headlines(np, torch, counters, smi)
+    paths.update(phase_new_paths(np, torch, counters, smi, headline_frames))
     # neither the top-k threshold nor the RoIAlign kernel is on a main path
     # (the JAX package runs them only through their own entry points); their
     # counts are 0 there and are reported as they are
@@ -1016,9 +1338,11 @@ def main() -> int:
         "roi_align": ("waymo_2d_tracking_tpu_torch/csrc/roi_align.cu",
                       "waymo_2d_tracking_tpu/ops/roi_align.py:187"),
     }
+    # launches: the headline's first run; launches_by_path: every main path's
     record = {"kernels": [
         {"name": k, "route": "cuda", "source": src, "replaces": rep,
-         "launches": paths["headline"][k], **kern[k]}
+         "launches": paths["headline"][k],
+         "launches_by_path": {path: counts[k] for path, counts in paths.items()}, **kern[k]}
         for k, (src, rep) in sources.items()
     ]}
     log(smi)

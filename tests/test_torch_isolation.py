@@ -1,7 +1,8 @@
 """The port stands alone: it imports neither JAX nor the JAX package, its
-config copy cannot drift from the JAX one, ``chip_smoke.py``'s headline dicts
-are ``configs/headline.yaml`` and ``configs/headline_centernet.yaml``, and
-nothing falls back to the CPU on its own."""
+config copy cannot drift from the JAX one, ``chip_smoke.py``'s preset dicts
+are ``configs/headline.yaml``, ``configs/headline_centernet.yaml`` and
+``configs/config4_multicam.yaml``, and nothing falls back to the CPU on its
+own."""
 import ast
 import dataclasses
 import importlib.util
@@ -51,7 +52,10 @@ def test_port_imports_no_jax_in_a_fresh_process():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert len(mods) >= 25
+    assert len(mods) >= 30
+    for new in ("pipeline.multicam", "pipeline.online", "pipeline.offline", "pipeline.link",
+                "pipeline.manifest", "io_out.postprocess"):
+        assert f"waymo_2d_tracking_tpu_torch.{new}" in mods, new
 
 
 def test_sources_never_name_the_jax_package():
@@ -114,18 +118,28 @@ def test_entry_points_need_a_card_unless_cpu():
     from waymo_2d_tracking_tpu_torch.ops.nms import nms_mask_cuda
     from waymo_2d_tracking_tpu_torch.ops.roi_align import roi_align_cuda
     from waymo_2d_tracking_tpu_torch.ops.topk import topk_threshold_cuda
+    from waymo_2d_tracking_tpu_torch.pipeline.multicam import MultiCamPipeline
+    from waymo_2d_tracking_tpu_torch.pipeline.offline import track_detection_rows
+    from waymo_2d_tracking_tpu_torch.pipeline.online import OnlineMultiCamTracker, OnlineTracker
     from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentPipeline
-    from waymo_2d_tracking_tpu_torch.tracker import Tracker, init_state
+    from waymo_2d_tracking_tpu_torch.tracker import Tracker, init_multicam_state, init_state
 
     small = dict(backbone="resnet18slim", image_size=(64, 64), fpn_channels=32,
                  fpn_levels=(3, 4, 5), head_depth=1, head_channels=32, embed_dim=0)
-    cfg = port_config._update(Config(), {"detector": small})
+    cfg = port_config._update(Config(), {"detector": small, "tracker": {"embed_dim": 0}})
     for make in (lambda: Tracker(TrackerConfig()), lambda: init_state(TrackerConfig()),
-                 lambda: DetectorRunner(cfg.detector), lambda: SegmentPipeline(cfg)):
+                 lambda: DetectorRunner(cfg.detector), lambda: SegmentPipeline(cfg),
+                 lambda: MultiCamPipeline(cfg, num_cams=2), lambda: init_multicam_state(cfg, 2),
+                 lambda: OnlineTracker(cfg), lambda: OnlineMultiCamTracker(cfg, [1, 2]),
+                 lambda: track_detection_rows(cfg, [])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     Tracker(TrackerConfig(), device="cpu").init()
     SegmentPipeline(cfg, device="cpu")
+    MultiCamPipeline(cfg, num_cams=2, device="cpu")
+    assert tuple(init_multicam_state(cfg, 2, device="cpu").next_id.shape) == (2,)
+    OnlineTracker(cfg, device="cpu")
+    OnlineMultiCamTracker(cfg, [1, 2], device="cpu")
     # the kernel wrappers never run their plain versions for a CPU tensor
     with pytest.raises(ValueError, match="CUDA"):
         nms_mask_cuda(torch.zeros(1, 4, 4), torch.ones(1, 4, dtype=torch.bool))
@@ -139,21 +153,27 @@ def test_entry_points_need_a_card_unless_cpu():
 
 
 def test_later_slices_raise_not_implemented():
-    """int8 and output gap interpolation are later slices and raise; the
-    CenterNet head family and TTA are ported and build on the CPU."""
+    """int8, JPEG frames and the mesh-sharded gallery scoring are later
+    slices and raise; the CenterNet head family, TTA and output gap
+    interpolation are ported and build on the CPU."""
     from waymo_2d_tracking_tpu_torch.config import Config
     from waymo_2d_tracking_tpu_torch.models.centernet import CenterNetHeads
     from waymo_2d_tracking_tpu_torch.models.detector import Detector
+    from waymo_2d_tracking_tpu_torch.pipeline.link import best_cross_camera_matches
+    from waymo_2d_tracking_tpu_torch.pipeline.online import OnlineTracker
     from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentPipeline, tta_active
 
     base = Config()
     with pytest.raises(NotImplementedError, match="int8"):
         Detector(port_config._update(base, {"detector": {"quant": "int8"}}).detector)
-    with pytest.raises(NotImplementedError, match="interp_max_gap"):
-        SegmentPipeline(port_config._update(base, {"pipeline": {"interp_max_gap": 2}}),
-                        device="cpu")
+    with pytest.raises(NotImplementedError, match="distributed"):
+        best_cross_camera_matches({}, mesh=object())
     small = {"backbone": "resnet18slim", "image_size": [64, 64], "fpn_channels": 32,
              "fpn_levels": [3, 4, 5], "head_depth": 1, "embed_dim": 0}
+    interp = port_config._update(base, {"detector": small, "pipeline": {"interp_max_gap": 2}})
+    SegmentPipeline(interp, device="cpu")
+    with pytest.raises(NotImplementedError, match="JPEG"):
+        OnlineTracker(interp, device="cpu").step(b"\xff\xd8\xff", 0)
     centernet = {**small, "head_family": "centernet"}
     assert isinstance(Detector(port_config._update(base, {"detector": centernet}).detector)
                       .heads, CenterNetHeads)
@@ -169,3 +189,12 @@ def test_headline_centernet_dict_equals_yaml():
     got = port_config._update(port_config.Config(), smoke.HEADLINE_CENTERNET)
     want = jax_config.load_config(os.path.join(ROOT, "configs", "headline_centernet.yaml"))
     assert dataclasses.asdict(got) == dataclasses.asdict(want)
+
+
+def test_config4_dict_equals_yaml():
+    smoke = _chip_smoke()
+    got = port_config._update(port_config.Config(), smoke.CONFIG4)
+    want = jax_config.load_config(os.path.join(ROOT, "configs", "config4_multicam.yaml"))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert (got.tracker.max_tracks, got.tracker.max_detections, got.pipeline.chunk_frames,
+            len(got.pipeline.cameras)) == (128, 128, 8, 5)

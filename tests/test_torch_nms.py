@@ -28,7 +28,7 @@ from waymo_2d_tracking_tpu.ops.nms import nms_batched as jax_nms_batched
 from waymo_2d_tracking_tpu.ops.nms import pallas_nms_mask_batched
 
 from waymo_2d_tracking_tpu_torch.ops.nms import (
-    MAX_N,
+    SHARED_MAX_N,
     nms_batched,
     nms_mask_batched,
     nms_mask_cuda,
@@ -203,8 +203,39 @@ def test_nms_batched_2048_candidates_matches_jax():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+def _greedy_oracle(boxes, valid, thr):
+    """Greedy NMS in float32 numpy, one kept box at a time against the later
+    boxes still alive; the IoU rounded as the kernel and the JAX kernel do."""
+    n = boxes.shape[0]
+    alive = valid.copy()
+    keep = np.zeros(n, bool)
+    for i in range(n):
+        if not alive[i]:
+            continue
+        keep[i] = True
+        inter, uni = _inter_union(boxes[i:i + 1], boxes[i + 1:])
+        alive[i + 1:] &= ~(inter[:, 0] / uni[:, 0] > F(thr))
+    return keep
+
+
+def test_reference_past_the_shared_size_matches_greedy_oracle():
+    """N = 8320 (past ``SHARED_MAX_N``, no multiple of 128), one image of
+    sparse boxes with clusters: the plain version, which the kernel's
+    device-memory variant is held to on the card, equals greedy NMS."""
+    rng = np.random.default_rng(83)
+    n = 8320
+    boxes = sorted_boxes(rng, 1, n, spread=4000.0, classes=3)[0]
+    valid = rng.uniform(size=n) > 0.2
+    want = _greedy_oracle(boxes, valid, 0.6)
+    got = nms_mask_reference(torch.from_numpy(boxes)[None], torch.from_numpy(valid)[None], 0.6)
+    np.testing.assert_array_equal(got[0].numpy(), want)
+    assert 0.2 * n < want.sum() < valid.sum()
+
+
 def test_cuda_wrapper_contract():
-    assert MAX_N >= 4096
+    # the switch point: past it the kernel keeps its per-box state in device
+    # memory, and any N runs
+    assert SHARED_MAX_N == 8192
     boxes = torch.zeros(1, 8, 4)
     with pytest.raises(ValueError, match="CUDA"):
         nms_mask_cuda(boxes, torch.ones(1, 8, dtype=torch.bool))

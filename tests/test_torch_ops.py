@@ -378,3 +378,62 @@ def test_roi_align_matches_jax():
                             jnp.asarray(boxes), strides)
     got = roi_align_multilevel_batched({k: T(v) for k, v in feats.items()}, T(boxes), strides)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def _wide_row_phase(v):
+    """(v1, j1, v2) of one bidder's row as ``auction_wide`` (n > 128) finds
+    them: lane l scans columns l, l + 32, ... in ascending order (the
+    branch-free chain), then five butterfly steps (xor 16, 8, 4, 2, 1)
+    merge the lanes, the lower column winning a tie; every lane ends equal."""
+    n = v.shape[0]
+    lanes = []
+    for lane in range(32):
+        v1, j1, v2 = np.float32(-np.inf), 0, np.float32(-1e30)
+        for j in range(lane, n, 32):
+            j1 = j if v[j] > v1 else j1
+            v2 = max(v2, min(v1, v[j]))
+            v1 = max(v1, v[j])
+        lanes.append((v1, j1, v2))
+    for off in (16, 8, 4, 2, 1):
+        merged = []
+        for lane in range(32):
+            (a1, aj, a2), (o1, oj, o2) = lanes[lane], lanes[lane ^ off]
+            j1 = oj if (o1 > a1 or (o1 == a1 and oj < aj)) else aj
+            merged.append((max(a1, o1), j1, max(min(a1, o1), max(a2, o2))))
+        lanes = merged
+    assert len(set((float(a), j, float(b)) for a, j, b in lanes)) == 1
+    return lanes[0]
+
+
+@pytest.mark.parametrize("n", [256, 384])
+def test_auction_wide_row_phase_matches_argmax(n):
+    rng = np.random.default_rng(n)
+    for trial in range(6):
+        # coarse values so that maxima tie within a lane and across lanes
+        b = (np.round(rng.normal(0, 1, n) * (2 if trial % 2 else 8)) / 4).astype(np.float32)
+        price = (np.round(rng.uniform(0, 1, n) * 2) / 4).astype(np.float32)
+        v = b - price
+        j1 = int(v.argmax())
+        got = _wide_row_phase(v)
+        want = (v[j1], j1, np.float32(np.delete(v, j1).max()))
+        assert tuple(float(x) for x in got) == tuple(float(x) for x in want), (n, trial)
+
+
+def test_auction_reference_at_n256_within_scipy_bound():
+    """A 230 x 200 tracker-like problem padded to n = 256 (past the one-warp
+    kernel's 128): the plain version of the kernel, which the wide kernel is
+    held to on the card, meets scipy's optimum within n * eps_min."""
+    rng = np.random.default_rng(256)
+    cost, row_mask, col_mask, forbid = _assign_problem(rng, 230, 200, p_forbid=0.6)
+    valid = row_mask[:, None] & col_mask[None, :] & ~forbid
+    b, e = _build_benefit(T(cost), T(valid), 256, 1e-2)
+    rtc, rounds, _, _ = auction_kernel_reference(b[None], e.reshape(1), torch.tensor([True]),
+                                                 eps_scale=0.2, eps_min=1e-2, max_iters=4096)
+    rtc = rtc[0, :230].numpy()
+    pairs = [(i, j) for i, j in enumerate(rtc) if 0 <= j < 200 and valid[i, j]]
+    sub = np.where(valid, cost, 1e6)
+    ri, ci = linear_sum_assignment(sub)
+    keep = sub[ri, ci] < 5e5
+    assert len(pairs) == int(keep.sum()) > 150
+    assert sum(cost[i, j] for i, j in pairs) <= sub[ri, ci][keep].sum() + 256 * 1e-2 + 1e-4
+    assert int(rounds[0]) > 0

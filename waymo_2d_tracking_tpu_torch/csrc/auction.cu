@@ -61,13 +61,28 @@
 //     which is written out once at the end.
 // A batch of problems is one launch: several warps per CTA once the batch
 // exceeds the SM count, each warp its own problem and its own shared region.
+//
+// Past n = 128 (kMaxN) the benefit no longer fits a warp's shared region (a
+// 256 x 256 one is 256 KB) and the row masks no longer fit two scalars. There
+// a second kernel runs one CTA of 8 warps per problem, with the same
+// schedule and the same tie rules: the benefit is read from global memory
+// (L2-resident), the prices, owners and bid slots of the columns sit in
+// shared memory (16 B a column), the unassigned rows are a word array there.
+// Each round, warp w takes the unassigned rows of the words w, w + 8, ...,
+// one bidder at a time with all 32 lanes on it: each lane scans its columns
+// in ascending order (the branch-free scan of the many-bidder path), a
+// butterfly of shuffles merges the lanes' (v1, lowest j1, v2), and lane 0
+// posts the bid by the same 64-bit atomicMax of (bid key, ~row). After a
+// barrier every column that took a bid changes hands; a row loses or wins at
+// most one column a round, so the word updates never collide on a row.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kMaxN = 128;
+constexpr int kMaxN = 128;                 // the one-warp kernel; larger n runs auction_wide
+constexpr int kWideThreads = 256;
 constexpr int kFew = 4;                    // most bidders a round handles with all lanes on each
 constexpr int kMaxWarpsPerCta = 8;
 constexpr int kMaxSmem = 227 * 1024;       // what one block may use on Hopper
@@ -355,6 +370,113 @@ auction_kernel(const float* __restrict__ benefit, const float* __restrict__ eps0
     if (own[q] >= 0) outp[own[q]] = q * 32 + lane;
 }
 
+// One problem of any n (a multiple of 32) on one CTA of kWideThreads threads:
+// the schedule of auction_kernel, with the benefit in global memory.
+__global__ void __launch_bounds__(kWideThreads)
+auction_wide(const float* __restrict__ benefit, const float* __restrict__ eps0,
+             const uint8_t* __restrict__ feasible, int32_t* __restrict__ out, int n,
+             float eps_scale, float eps_min, float eps_stop, int max_iters) {
+  extern __shared__ unsigned long long wsmem[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int nwarps = kWideThreads / 32;
+  const int prob = blockIdx.x;
+  const int words = n >> 5;
+  int32_t* outp = out + (size_t)prob * n;
+  if (!feasible[prob]) {
+    for (int j = tid; j < n; j += kWideThreads) outp[j] = -1;
+    return;
+  }
+  const float* b = benefit + (size_t)prob * n * n;
+  unsigned long long* slot = wsmem;                             // n: best (bid key, ~row)
+  float* price = reinterpret_cast<float*>(slot + n);            // n
+  int* own = reinterpret_cast<int*>(price + n);                 // n: owner row, -1 for none
+  unsigned* un = reinterpret_cast<unsigned*>(own + n);          // n / 32: unassigned rows
+  for (int j = tid; j < n; j += kWideThreads) price[j] = 0.f;
+  float eps = eps0[prob];
+
+  while (eps > 0.f) {
+    const float e = fmaxf(eps, eps_min);
+    for (int j = tid; j < n; j += kWideThreads) own[j] = -1;
+    for (int w = tid; w < words; w += kWideThreads) un[w] = kAll;
+    __syncthreads();
+    for (int it = 0; it < max_iters; ++it) {
+      bool any = false;
+      for (int w = tid; w < words; w += kWideThreads) any |= un[w] != 0u;
+      if (!__syncthreads_or(any)) break;
+      for (int j = tid; j < n; j += kWideThreads) slot[j] = 0ull;
+      __syncthreads();
+      for (int w = warp; w < words; w += nwarps) {
+        unsigned m = un[w];
+        while (m) {
+          const int row = (w << 5) + __ffs(m) - 1;
+          m &= m - 1u;
+          const float* r = b + (size_t)row * n;
+          Best best;
+          for (int j = lane; j < n; j += 32) best.step(__fsub_rn(__ldg(r + j), price[j]), j);
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) {
+            Best o;
+            o.v1 = __shfl_xor_sync(kAll, best.v1, off);
+            o.j1 = __shfl_xor_sync(kAll, best.j1, off);
+            o.v2 = __shfl_xor_sync(kAll, best.v2, off);
+            best.merge(o);
+          }
+          if (lane == 0) {
+            const float bid = __fadd_rn(__fsub_rn(__ldg(r + best.j1), best.v2), e);
+            atomicMax(&slot[best.j1], (unsigned long long)order_key(bid) << 32 | (unsigned)~row);
+          }
+        }
+      }
+      __syncthreads();
+      // columns that took a bid change hands: the winner is assigned, the old
+      // owner unassigned
+      for (int j = tid; j < n; j += kWideThreads) {
+        const unsigned long long s = slot[j];
+        if (!s) continue;
+        const int win = (int)~(unsigned)s;
+        const int old = own[j];
+        price[j] = key_value((unsigned)(s >> 32));
+        own[j] = win;
+        if (old >= 0) atomicOr(&un[old >> 5], 1u << (old & 31));
+        atomicAnd(&un[win >> 5], ~(1u << (win & 31)));
+      }
+      __syncthreads();
+    }
+    eps = (e <= eps_stop) ? 0.f : __fmul_rn(eps, eps_scale);
+  }
+  __syncthreads();
+  // row -> column: -1 for the unassigned rows, else the column each owns
+  for (int r = tid; r < n; r += kWideThreads)
+    if ((un[r >> 5] >> (r & 31)) & 1u) outp[r] = -1;
+  for (int j = tid; j < n; j += kWideThreads)
+    if (own[j] >= 0) outp[own[j]] = j;
+}
+
+constexpr size_t wide_smem(int n) { return (size_t)n * 16 + (size_t)(n / 32) * 4; }
+
+int launch_wide(const float* benefit, const float* eps0, const uint8_t* feasible, int32_t* out,
+                int batch, int n, float eps_scale, float eps_min, float eps_stop, int max_iters,
+                cudaStream_t stream) {
+  const size_t smem = wide_smem(n);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  static bool opted_in[kMaxDevices];
+  if (smem > 48 * 1024) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+    if (!opted_in[dev]) {
+      err = cudaFuncSetAttribute(auction_wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kMaxSmem);
+      if (err != cudaSuccess) return (int)err;
+      opted_in[dev] = true;
+    }
+  }
+  auction_wide<<<batch, kWideThreads, smem, stream>>>(benefit, eps0, feasible, out, n, eps_scale,
+                                                     eps_min, eps_stop, max_iters);
+  return (int)cudaGetLastError();
+}
+
 template <int NQ>
 int launch(const float* benefit, const float* eps0, const uint8_t* feasible, int32_t* out,
            int batch, float eps_scale, float eps_min, float eps_stop, int max_iters,
@@ -395,9 +517,12 @@ extern "C" int w2t_auction(const float* benefit, const float* eps0, const uint8_
                            int32_t* out, int batch, int n, float eps_scale, float eps_min,
                            float eps_stop, int max_iters, void* stream) {
   if (batch <= 0) return 0;
-  if (n <= 0 || n > kMaxN || n % 32 != 0) return (int)cudaErrorInvalidValue;
+  if (n <= 0 || n % 32 != 0) return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(benefit) % 16 != 0) return (int)cudaErrorMisalignedAddress;
   const cudaStream_t s = (cudaStream_t)stream;
+  if (n > kMaxN)
+    return launch_wide(benefit, eps0, feasible, out, batch, n, eps_scale, eps_min, eps_stop,
+                       max_iters, s);
   switch (n / 32) {
     case 1: return launch<1>(benefit, eps0, feasible, out, batch, eps_scale, eps_min, eps_stop, max_iters, s);
     case 2: return launch<2>(benefit, eps0, feasible, out, batch, eps_scale, eps_min, eps_stop, max_iters, s);

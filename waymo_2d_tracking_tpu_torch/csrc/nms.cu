@@ -4,7 +4,10 @@
 // (launched by pallas_nms_mask_batched). Same contract: boxes (B, N, 4) xyxy
 // already sorted by descending score, valid (B, N); keep[i] = valid[i] and no
 // kept j < i has IoU(i, j) > thr. The result is exact greedy NMS, bit for bit,
-// for any N up to kMaxN (8192; the boxes of one image stay in shared memory).
+// for any N: up to kSharedN (8192) the boxes of one image stay in shared
+// memory; above it the same schedule keeps them, the in-block words, the kept
+// words and a dead byte per box in a global scratch of the caller's (25 B a
+// box, L2-resident at the sizes TTA makes: 250 KB at N = 10240).
 //
 // What bounds it on Hopper: neither bytes (18 per box) nor the IoUs the
 // function needs (a kept box against the later boxes still alive, ~150 K
@@ -41,6 +44,12 @@
 // so that is rare. A threshold below 2^-20 (or NaN) always divides; a
 // negative one makes every pair a hit, intersecting or not.
 //
+// Past kSharedN a warp owns more than 32 blocks, so its dead bits no longer
+// fit one register word: each lane keeps a byte per box in the scratch, which
+// only that lane reads or writes. The step-1 list (the warp's own block) is
+// staged through shared memory, so every box a lane compares comes from
+// shared memory in both variants.
+//
 // Rounding: the IoU is inter / max(union, 1e-7) with union = area_i + area_j -
 // inter, each operation rounded on its own (explicit _rn intrinsics; the
 // build also passes -fmad=false). A fused multiply-add in the union would
@@ -51,7 +60,7 @@
 
 namespace {
 
-constexpr int kMaxN = 8192;       // 20 bytes of shared memory a box, 227 KB a CTA
+constexpr int kSharedN = 8192;    // 20 bytes of shared memory a box, 227 KB a CTA
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxDevices = 64;
 constexpr unsigned kFull = 0xffffffffu;
@@ -59,6 +68,18 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr size_t smem_bytes(int nblk) {
   // per box: float4 + 1 word; per block: the kept word; 2 lists of kept boxes
   return (size_t)nblk * 32 * 20 + (size_t)(nblk + (nblk & 1)) * 4 + 2 * 32 * 20 + 16;
+}
+
+// past kSharedN: shared memory holds the two kept lists, a 32-box staging
+// area per warp and the timing words; the scratch holds per image the boxes,
+// the in-block words, the kept words and the dead bytes, 16-byte aligned
+constexpr size_t smem_bytes_global() {
+  return 2 * 32 * 20 + (size_t)(kMaxThreads / 32) * 32 * 16 + 16;
+}
+
+__host__ __device__ constexpr size_t scratch_bytes(int n) {
+  const size_t nblk = (size_t)(n + 31) / 32, npad = nblk * 32;
+  return (npad * 16 + npad * 4 + nblk * 4 + npad + 15) / 16 * 16;
 }
 
 __device__ __forceinline__ float box_area(const float4 v) {
@@ -113,26 +134,61 @@ __device__ __forceinline__ uint32_t hits(const float4* __restrict__ list,
 // kTimed also writes, per image, clock64 cycles of {the whole CTA, the
 // prologue (load + the in-block words), the owners' turns summed} and the
 // number of fixpoint rounds.
-template <bool kTimed>
+// kGlobal: the variant past kSharedN, with its per-box state in scratch.
+template <bool kTimed, bool kGlobal>
 __global__ void __launch_bounds__(kMaxThreads)
 nms_mask_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ valid,
                 uint8_t* __restrict__ keep, int n, float thr, int aligned,
-                long long* __restrict__ cycles) {
+                long long* __restrict__ cycles, uint8_t* scratch) {
   extern __shared__ float4 smem[];
   const int nblk = (n + 31) >> 5;
   const int npad = nblk << 5;
-  float4* sbox = smem;                                        // npad
-  float4* klist = sbox + npad;                                // 2 x 32: kept boxes of a block
-  float* karea = reinterpret_cast<float*>(klist + 64);        // 2 x 32: their areas
-  uint32_t* own = reinterpret_cast<uint32_t*>(karea + 64);    // npad: earlier boxes of my block
-  uint32_t* keptw = own + npad;                               // nblk kept words
-  unsigned long long* timing =
-      reinterpret_cast<unsigned long long*>(keptw + nblk + (nblk & 1));
+  float4* sbox;                                               // npad
+  float4* klist;                                              // 2 x 32: kept boxes of a block
+  float* karea;                                               // 2 x 32: their areas
+  uint32_t* own;                                              // npad: earlier boxes of my block
+  uint32_t* keptw;                                            // nblk kept words
+  unsigned long long* timing;
+  float4* stage = nullptr;                                    // kGlobal: 32 boxes a warp
+  uint8_t* deadb = nullptr;                                   // kGlobal: a dead byte a box
+  if constexpr (kGlobal) {
+    klist = smem;
+    karea = reinterpret_cast<float*>(klist + 64);
+    stage = reinterpret_cast<float4*>(karea + 64);
+    timing = reinterpret_cast<unsigned long long*>(stage + kMaxThreads);
+    uint8_t* img = scratch + (size_t)blockIdx.x * scratch_bytes(n);
+    sbox = reinterpret_cast<float4*>(img);
+    own = reinterpret_cast<uint32_t*>(sbox + npad);
+    keptw = own + npad;
+    deadb = reinterpret_cast<uint8_t*>(keptw + nblk);
+  } else {
+    sbox = smem;
+    klist = sbox + npad;
+    karea = reinterpret_cast<float*>(klist + 64);
+    own = reinterpret_cast<uint32_t*>(karea + 64);
+    keptw = own + npad;
+    timing = reinterpret_cast<unsigned long long*>(keptw + nblk + (nblk & 1));
+  }
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nthreads = blockDim.x, nwarps = nthreads >> 5;
-  const int owned = (nblk + nwarps - 1) / nwarps;             // blocks a warp owns, <= 32
+  const int owned = (nblk + nwarps - 1) / nwarps;             // blocks a warp owns (<= 32 unless kGlobal)
   const size_t base = (size_t)blockIdx.x * n;
+  // this lane's box of its q-th block: dead (invalid, removed or past the
+  // last block)?
+  uint32_t dead = kFull;
+  auto is_dead = [&](int q) -> bool {
+    if constexpr (kGlobal) {
+      const int blk = q * nwarps + warp;
+      return blk >= nblk || deadb[(blk << 5) + lane];
+    } else {
+      return (dead >> q) & 1u;
+    }
+  };
+  auto kill = [&](int q) {
+    if constexpr (kGlobal) deadb[((q * nwarps + warp) << 5) + lane] = 1;
+    else dead |= 1u << q;
+  };
   const Threshold t = make_threshold(thr);
   long long t_start = 0;
   if (kTimed) {
@@ -154,10 +210,14 @@ nms_mask_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ val
     }
     sbox[j] = v;
   }
-  uint32_t dead = kFull;
   for (int q = 0; q < owned; ++q) {
     const int j = ((q * nwarps + warp) << 5) + lane;
-    if (j < n && valid[base + j]) dead &= ~(1u << q);
+    const bool live = j < n && valid[base + j];
+    if constexpr (kGlobal) {
+      if (j < npad) deadb[j] = !live;
+    } else if (live) {
+      dead &= ~(1u << q);
+    }
   }
   __syncthreads();
 
@@ -165,10 +225,17 @@ nms_mask_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ val
   for (int q = 0; q < owned; ++q) {
     const int blk = q * nwarps + warp;
     if (blk >= nblk) break;
-    const bool live = !((dead >> q) & 1u);
+    const bool live = !is_dead(q);
     const uint32_t earlier = __ballot_sync(kFull, live) & ((1u << lane) - 1u);
     const int j = (blk << 5) + lane;
-    own[j] = live ? hits(sbox + (blk << 5), nullptr, lane, earlier, sbox[j], t) : 0u;
+    const float4* block = sbox + (blk << 5);
+    if constexpr (kGlobal) {
+      stage[(warp << 5) + lane] = sbox[j];
+      __syncwarp();
+      block = stage + (warp << 5);
+    }
+    own[j] = live ? hits(block, nullptr, lane, earlier, block[lane], t) : 0u;
+    if constexpr (kGlobal) __syncwarp();                      // the stage is reused
   }
   long long t_prologue = 0;
   if (kTimed) t_prologue = clock64();
@@ -190,10 +257,10 @@ nms_mask_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ val
       if (kTimed) w0 = clock64();
       const int j = (blk << 5) + lane;
       const float4 me = sbox[j];
-      bool live = !((dead >> q) & 1u);
+      bool live = !is_dead(q);
       if (live && hits(list, areas, count, all, me, t)) {
         live = false;
-        dead |= 1u << q;
+        kill(q);
       }
       const uint32_t mine = own[j];
       uint32_t kept = __ballot_sync(kFull, live);
@@ -219,9 +286,9 @@ nms_mask_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ val
     }
     if (count) {
       for (; q < owned; ++q) {
-        if ((dead >> q) & 1u) continue;
+        if (is_dead(q)) continue;
         const int j = ((q * nwarps + warp) << 5) + lane;
-        if (hits(list, areas, count, all, sbox[j], t)) dead |= 1u << q;
+        if (hits(list, areas, count, all, sbox[j], t)) kill(q);
       }
     }
     if (++ow == nwarps) {
@@ -245,10 +312,22 @@ nms_mask_kernel(const float* __restrict__ boxes, const uint8_t* __restrict__ val
 }
 
 template <bool kTimed>
+int launch_global(const float* boxes, const uint8_t* valid, uint8_t* keep, int batch, int n,
+                  float thr, long long* cycles, uint8_t* scratch, cudaStream_t stream) {
+  if (scratch == nullptr || reinterpret_cast<uintptr_t>(scratch) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int aligned = reinterpret_cast<uintptr_t>(boxes) % 16 == 0;
+  nms_mask_kernel<kTimed, true><<<batch, kMaxThreads, smem_bytes_global(), stream>>>(
+      boxes, valid, keep, n, thr, aligned, cycles, scratch);
+  return (int)cudaGetLastError();
+}
+
+template <bool kTimed>
 int launch(const float* boxes, const uint8_t* valid, uint8_t* keep, int batch, int n, float thr,
-           long long* cycles, cudaStream_t stream) {
+           long long* cycles, uint8_t* scratch, cudaStream_t stream) {
   if (batch <= 0 || n <= 0) return 0;
-  if (n > kMaxN) return (int)cudaErrorInvalidValue;
+  if (n > kSharedN) return launch_global<kTimed>(boxes, valid, keep, batch, n, thr, cycles,
+                                                 scratch, stream);
   const int nblk = (n + 31) / 32;
   const int threads = nblk * 32 < kMaxThreads ? nblk * 32 : kMaxThreads;
   const size_t smem = smem_bytes(nblk);
@@ -261,29 +340,44 @@ int launch(const float* boxes, const uint8_t* valid, uint8_t* keep, int batch, i
     if (err != cudaSuccess) return (int)err;
     if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
     if (!opted_in[dev]) {
-      err = cudaFuncSetAttribute(nms_mask_kernel<kTimed>,
+      err = cudaFuncSetAttribute(nms_mask_kernel<kTimed, false>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem_bytes(kMaxN / 32));
+                                 (int)smem_bytes(kSharedN / 32));
       if (err != cudaSuccess) return (int)err;
       opted_in[dev] = true;
     }
   }
   const int aligned = reinterpret_cast<uintptr_t>(boxes) % 16 == 0;
-  nms_mask_kernel<kTimed><<<batch, threads, smem, stream>>>(boxes, valid, keep, n, thr, aligned,
-                                                            cycles);
+  nms_mask_kernel<kTimed, false><<<batch, threads, smem, stream>>>(
+      boxes, valid, keep, n, thr, aligned, cycles, nullptr);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// N <= 8192, no scratch: the entry point every earlier build of this kernel
+// has, kept for tools/compare_builds.py (larger N returns cudaErrorInvalidValue).
 extern "C" int w2t_nms_mask(const float* boxes, const uint8_t* valid, uint8_t* keep,
                             int batch, int n, float thr, void* stream) {
-  return launch<false>(boxes, valid, keep, batch, n, thr, nullptr, (cudaStream_t)stream);
+  if (n > kSharedN) return (int)cudaErrorInvalidValue;
+  return launch<false>(boxes, valid, keep, batch, n, thr, nullptr, nullptr, (cudaStream_t)stream);
 }
 
-// The same kernel with its clock64 readings: cycles (batch, 4) int64 = {whole
-// CTA, prologue, owners' turns summed, fixpoint rounds} per image.
-extern "C" int w2t_nms_mask_timed(const float* boxes, const uint8_t* valid, uint8_t* keep,
-                                  int batch, int n, float thr, long long* cycles, void* stream) {
-  return launch<true>(boxes, valid, keep, batch, n, thr, cycles, (cudaStream_t)stream);
+// Bytes of scratch per image that any N needs (0 up to 8192, where the
+// shared-memory variant runs).
+extern "C" long long w2t_nms_scratch_bytes(int n) {
+  return n > kSharedN ? (long long)scratch_bytes(n) : 0;
+}
+
+// Any N: scratch holds batch * w2t_nms_scratch_bytes(n) bytes, 16-byte
+// aligned (null up to 8192). cycles null runs the untimed build; else the
+// timed one writes per image cycles (batch, 4) int64 = {whole CTA, prologue,
+// owners' turns summed, fixpoint rounds}.
+extern "C" int w2t_nms_mask_any(const float* boxes, const uint8_t* valid, uint8_t* keep,
+                                int batch, int n, float thr, long long* cycles, void* scratch,
+                                void* stream) {
+  uint8_t* s = static_cast<uint8_t*>(scratch);
+  if (cycles != nullptr)
+    return launch<true>(boxes, valid, keep, batch, n, thr, cycles, s, (cudaStream_t)stream);
+  return launch<false>(boxes, valid, keep, batch, n, thr, nullptr, s, (cudaStream_t)stream);
 }

@@ -1,5 +1,5 @@
 """Track records and their JSONL form (the part of ``io_out/submission.py``
-on the port's path; the Waymo protobuf writer is a later slice).
+on the port's paths; the Waymo protobuf writer is a later slice).
 
 Record schema (2D camera tracking): context_name, timestamp_micros,
 camera_name (enum int), object_id (str), type (1=vehicle, 2=pedestrian,
@@ -114,13 +114,10 @@ def records_from_track_outputs(
 ) -> List[TrackRecord]:
     """Stacked numpy TrackOutputs (T, S) -> flat records (valid slots only).
 
-    ``scale`` maps network boxes back to source pixels. Gap interpolation
-    (``interp_max_gap`` > 0, ``io_out/postprocess.py``) is a later slice.
+    ``scale`` maps network boxes back to source pixels. ``interp_max_gap`` >
+    0 fills per-track gaps of up to that many frames by linear interpolation
+    on the exact ``timestamps`` grid (``io_out/postprocess.py``).
     """
-    if interp_max_gap > 0:
-        raise NotImplementedError(
-            "pipeline.interp_max_gap > 0 needs io_out/postprocess.py, which "
-            "is not ported yet (a later slice of the port)")
     valid = np.asarray(outputs.valid)
     ids = np.asarray(outputs.track_id)
     boxes = np.asarray(outputs.boxes) / scale
@@ -135,4 +132,8 @@ def records_from_track_outputs(
                 object_type=_waymo_type(int(classes[t, s])),
                 box_xyxy=boxes[t, s], score=scores[t, s],
             ))
+    if interp_max_gap > 0:
+        from waymo_2d_tracking_tpu_torch.io_out.postprocess import interpolate_gaps
+
+        recs = interpolate_gaps(recs, timestamps, interp_max_gap)
     return recs

@@ -13,6 +13,17 @@ from torch import nn
 GN_EPS = 1e-6  # flax nn.GroupNorm's epsilon (torch's default is 1e-5)
 
 
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` without ``F.group_norm``'s Python check that refuses
+    one value per group: a 1x1 pyramid level of a single image (P7 of a
+    64x96 input, 32 groups of 32 channels) is valid, and flax normalizes it
+    to the bias. The same ATen op computes it."""
+
+    def forward(self, x):
+        return torch.group_norm(x, self.num_groups, self.weight, self.bias, self.eps,
+                                torch.backends.cudnn.enabled)
+
+
 class HeadTower(nn.Module):
     def __init__(self, in_ch: int, depth: int = 4, channels: int = 256):
         super().__init__()
@@ -20,7 +31,7 @@ class HeadTower(nn.Module):
         for i in range(depth):
             self.add_module(f"conv{i}", nn.Conv2d(in_ch if i == 0 else channels,
                                                   channels, 3, padding=1))
-            self.add_module(f"gn{i}", nn.GroupNorm(32, channels, eps=GN_EPS))
+            self.add_module(f"gn{i}", GroupNorm(32, channels, eps=GN_EPS))
 
     def forward(self, x):
         for i in range(self.depth):

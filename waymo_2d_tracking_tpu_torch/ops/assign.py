@@ -27,7 +27,8 @@ from waymo_2d_tracking_tpu_torch.ops import _cuda
 
 _NEG_INF = -1e30  # only for masking bids within one iteration
 _BIG = 1e30
-MAX_N = 128  # the kernel keeps the (n, n + 1) benefit in shared memory
+WARP_MAX_N = 128  # up to it one warp a problem, the benefit in shared memory
+MAX_N = 14400     # past WARP_MAX_N one CTA a problem, 16 B of shared memory a column
 
 
 def _f32(x: float, device) -> torch.Tensor:
@@ -45,26 +46,29 @@ def _build_benefit(cost: torch.Tensor, valid: torch.Tensor, n_out: int,
                    eps_min: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Square padded maximization benefit + dynamic eps0 for the auction.
 
-    Returns (benefit (n_out, n_out) f32, eps0 () f32). Padding is worse than
-    any chain of valid assignments (maximum cardinality wins) by only the
-    needed margin; a row-rotated nudge of (n-1)*tiny < eps_min/4 breaks
-    exact ties so uniform blocks resolve in one round. Scalars enter as
-    Python numbers, never as new device tensors: building a tensor from a
-    host value on the card would wait for the stream once per tracker step.
+    cost / valid (..., R, C): leading axes are independent problems (cameras),
+    each reduced on its own. Returns (benefit (..., n_out, n_out) f32, eps0
+    (...,) f32). Padding is worse than any chain of valid assignments
+    (maximum cardinality wins) by only the needed margin; a row-rotated
+    nudge of (n-1)*tiny < eps_min/4 breaks exact ties so uniform blocks
+    resolve in one round. Scalars enter as Python numbers, never as new
+    device tensors: building a tensor from a host value on the card would
+    wait for the stream once per tracker step.
     """
-    r, c = cost.shape
+    r, c = cost.shape[-2:]
+    lead = cost.shape[:-2]
     dev = cost.device
     costf = cost.float()
     masked = torch.where(valid, costf, 0.0)
-    c_max = torch.clamp(masked.amax(), min=0.0)
-    c_min = torch.clamp(masked.amin(), max=0.0)
+    c_max = torch.clamp(masked.amax(dim=(-2, -1)), min=0.0)
+    c_min = torch.clamp(masked.amin(dim=(-2, -1)), max=0.0)
     pad = -((c_max - c_min) * float(n_out) + 1.0) + c_min
 
-    benefit = torch.zeros((n_out, n_out), dtype=torch.float32, device=dev)
-    benefit[:r, :c] = torch.where(valid, -costf, 0.0)
-    mask_nn = torch.zeros((n_out, n_out), dtype=torch.bool, device=dev)
-    mask_nn[:r, :c] = valid
-    benefit = torch.where(mask_nn, benefit, pad)
+    benefit = torch.zeros(lead + (n_out, n_out), dtype=torch.float32, device=dev)
+    benefit[..., :r, :c] = torch.where(valid, -costf, 0.0)
+    mask_nn = torch.zeros(lead + (n_out, n_out), dtype=torch.bool, device=dev)
+    mask_nn[..., :r, :c] = valid
+    benefit = torch.where(mask_nn, benefit, pad[..., None, None])
 
     idx = torch.arange(n_out, dtype=torch.float32, device=dev)
     rot = torch.remainder(idx[None, :] - idx[:, None], float(n_out))
@@ -205,9 +209,11 @@ def auction_kernel_cuda(
     eps_scale: float, eps_min: float, max_iters: int,
 ) -> torch.Tensor:
     """Launch ``csrc/auction.cu`` on a batch: benefit (P, n, n) f32 with n a
-    multiple of 32 up to 128, eps0 (P,) f32, feasible (P,) bool, all
-    contiguous on one CUDA device. Returns row_to_col (P, n) int32. One warp
-    per problem, several problems per CTA when P exceeds the SM count."""
+    multiple of 32 up to ``MAX_N``, eps0 (P,) f32, feasible (P,) bool, all
+    contiguous on one CUDA device. Returns row_to_col (P, n) int32. Up to
+    ``WARP_MAX_N`` one warp per problem, several problems per CTA when P
+    exceeds the SM count; above it one CTA per problem reading the benefit
+    from device memory."""
     dev = benefit.device
     if dev.type != "cuda" or eps0.device != dev or feasible.device != dev:
         raise ValueError("auction_kernel_cuda takes CUDA tensors on one device")
@@ -237,18 +243,22 @@ def auction_kernel_cuda(
         )
     _cuda.check(err, "auction")
     auction_kernel_cuda.launches += 1
+    auction_kernel_cuda.last_shape = (pn, n)
     return out
 
 
 auction_kernel_cuda.launches = 0
+auction_kernel_cuda.last_shape = None  # (P, n) of the last launch
 
 
-def _valid_pairs(r, c, row_mask, col_mask, forbid, device):
+def _valid_pairs(cost, row_mask, col_mask, forbid):
+    """(..., R, C) bool: pairs of a valid row and a valid column, not forbidden."""
+    shape, dev = cost.shape, cost.device
     if row_mask is None:
-        row_mask = torch.ones((r,), dtype=torch.bool, device=device)
+        row_mask = torch.ones(shape[:-1], dtype=torch.bool, device=dev)
     if col_mask is None:
-        col_mask = torch.ones((c,), dtype=torch.bool, device=device)
-    valid = row_mask[:, None] & col_mask[None, :]
+        col_mask = torch.ones(shape[:-2] + shape[-1:], dtype=torch.bool, device=dev)
+    valid = row_mask[..., :, None] & col_mask[..., None, :]
     if forbid is not None:
         valid = valid & ~forbid
     return valid
@@ -261,23 +271,26 @@ def greedy_assign(
     forbid: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Greedy lowest-cost-first matching (not optimal). Same contract as
-    :func:`auction_assign`. Runs min(R, C) masked steps with no host sync;
-    a step with no valid pair left changes nothing, as the JAX early exit."""
-    r, c = cost.shape
+    :func:`auction_assign`, leading axes included: each problem takes its own
+    cheapest pair per step. Runs min(R, C) masked steps with no host sync; a
+    step with no valid pair left changes nothing, as the JAX early exit."""
+    r, c = cost.shape[-2:]
+    lead = cost.shape[:-2]
     dev = cost.device
-    valid = _valid_pairs(r, c, row_mask, col_mask, forbid, dev)
+    valid = _valid_pairs(cost, row_mask, col_mask, forbid)
     work = torch.where(valid, cost.float(), _BIG)
-    rtc = torch.full((r,), -1, dtype=torch.int32, device=dev)
-    ctr = torch.full((c,), -1, dtype=torch.int32, device=dev)
+    rtc = torch.full(lead + (r,), -1, dtype=torch.int32, device=dev)
+    ctr = torch.full(lead + (c,), -1, dtype=torch.int32, device=dev)
     rows = torch.arange(r, device=dev)
     cols = torch.arange(c, device=dev)
     for _ in range(min(r, c)):
-        live = work.amin() < _BIG * 0.5
-        flat = torch.argmin(work.reshape(-1))
+        flat_work = work.flatten(-2)
+        live = (flat_work.amin(dim=-1) < _BIG * 0.5)[..., None]
+        flat = torch.argmin(flat_work, dim=-1)[..., None]
         i, j = flat // c, flat % c
         rtc = torch.where((rows == i) & live, j.to(torch.int32), rtc)
         ctr = torch.where((cols == j) & live, i.to(torch.int32), ctr)
-        hit = ((rows == i)[:, None] | (cols == j)[None, :]) & live
+        hit = ((rows == i)[..., :, None] | (cols == j)[..., None, :]) & live[..., None]
         work = torch.where(hit, _BIG, work)
     return rtc, ctr
 
@@ -294,36 +307,46 @@ def auction_assign(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Min-cost assignment of rows to columns.
 
-    cost (R, C) f32; row_mask (R,) / col_mask (C,) bool, False entries are
-    padding; forbid (R, C) bool gates pairs. Returns (row_to_col (R,) int32,
-    col_to_row (C,) int32), -1 for unmatched; pairs routed through padding
-    or forbidden entries are reported unmatched. Total cost is within
-    N * eps_min of optimal.
+    cost (..., R, C) f32; row_mask (..., R) / col_mask (..., C) bool, False
+    entries are padding; forbid (..., R, C) bool gates pairs. Leading axes
+    are independent problems (the cameras of a rig): on the card they are
+    one kernel launch, ``P`` = their product. Returns (row_to_col (..., R)
+    int32, col_to_row (..., C) int32), -1 for unmatched; pairs routed
+    through padding or forbidden entries are reported unmatched. Total cost
+    is within N * eps_min of optimal.
     """
-    r, c = cost.shape
+    r, c = cost.shape[-2:]
+    lead = cost.shape[:-2]
     dev = cost.device
-    valid = _valid_pairs(r, c, row_mask, col_mask, forbid, dev)
+    valid = _valid_pairs(cost, row_mask, col_mask, forbid)
 
     if dev.type == "cuda":
         n = _round_up_128(max(r, c))
         benefit, eps0 = _build_benefit(cost, valid, n, eps_min)
         row_to_col = auction_kernel_cuda(
-            benefit[None], eps0.reshape(1), valid.any().reshape(1),
+            benefit.reshape(-1, n, n), eps0.reshape(-1),
+            valid.flatten(-2).any(dim=-1).reshape(-1),
             eps_scale=eps_scale, eps_min=eps_min, max_iters=max_iters,
-        )[0]
+        ).reshape(lead + (n,))
     else:
+        # one XLA while-loop per problem: what JAX runs under vmap off the TPU
         n = max(r, c)
         benefit, eps0 = _build_benefit(cost, valid, n, eps_min)
-        row_to_col = _auction_while_loop(benefit, eps0, eps_scale, eps_min, max_iters)
+        flat_b, flat_e = benefit.reshape(-1, n, n), eps0.reshape(-1)
+        row_to_col = torch.stack([
+            _auction_while_loop(flat_b[p], flat_e[p], eps_scale, eps_min, max_iters)
+            for p in range(flat_b.shape[0])
+        ]).reshape(lead + (n,))
 
     rows = torch.arange(r, device=dev)
-    rtc = row_to_col[:r]
+    rtc = row_to_col[..., :r]
     safe_cols = torch.clamp(rtc, 0, c - 1).long()
-    pair_ok = (rtc >= 0) & (rtc < c) & valid[rows, safe_cols]
+    pair_ok = ((rtc >= 0) & (rtc < c)
+               & torch.gather(valid, -1, safe_cols[..., None])[..., 0])
     rtc = torch.where(pair_ok, rtc, -1).to(torch.int32)
 
     safe = torch.where(rtc >= 0, rtc, 0).long()
     vals = torch.where(rtc >= 0, rows.to(torch.int32), -1)
-    col_to_row = torch.full((c,), -1, dtype=torch.int32, device=dev).scatter_reduce(
-        0, safe, vals, reduce="amax", include_self=True)
+    col_to_row = torch.full(lead + (c,), -1, dtype=torch.int32, device=dev).scatter_reduce(
+        -1, safe, vals, reduce="amax", include_self=True)
     return rtc, col_to_row

@@ -11,10 +11,12 @@ equal to the JAX kernel: the IoU is ``inter / max(union, 1e-7)`` with
 The kernel runs one CTA per image over blocks of 32 boxes: the block's owner
 warp resolves the block's live boxes by a fixpoint of ballots, then every
 live box of a later block is tested against the boxes just kept, dividing
-only where a multiplication cannot decide. It stores nothing per pair, so it
-takes any N up to ``MAX_N`` = 8192 (the boxes of one image stay in shared
-memory), a multiple of 32 or not; the JAX package pads any N to a multiple
-of 128. Boxes must be finite.
+only where a multiplication cannot decide. It stores nothing per pair and
+takes any N, a multiple of 32 or not, as the JAX package (which pads any N
+to a multiple of 128) does: up to ``SHARED_MAX_N`` = 8192 the boxes of one
+image stay in shared memory; above it the wrapper hands the kernel a scratch
+buffer in device memory (25 bytes a box) and the same schedule keeps its
+per-box state there. Boxes must be finite.
 
 ``nms_batched`` is the full per-image sort -> suppress -> top-K selection.
 ``lax.top_k`` returns equal values lowest index first; ``torch.topk`` does
@@ -29,7 +31,7 @@ import torch
 from waymo_2d_tracking_tpu_torch.ops import _cuda
 from waymo_2d_tracking_tpu_torch.ops.iou import pairwise_iou
 
-MAX_N = 8192  # the kernel keeps 20 bytes of shared memory per box
+SHARED_MAX_N = 8192  # past it the kernel keeps its per-box state in device memory
 
 
 def topk_stable(x: torch.Tensor, k: int):
@@ -43,27 +45,34 @@ def nms_mask_reference(boxes: torch.Tensor, valid: torch.Tensor,
     """Plain PyTorch greedy NMS keep-mask, same contract as the kernel.
 
     boxes (B, N, 4) f32 sorted by descending score, valid (B, N) bool.
-    Returns (B, N) bool. The walk is N sequential steps, vectorised over B.
+    Returns (B, N) bool. The walk is N sequential steps, vectorised over B;
+    the IoU rows are computed a band of rows at a time (about 2^24 entries),
+    so a large N needs no N x N matrix.
     """
     b, n = valid.shape
-    thr = torch.tensor(iou_threshold, dtype=torch.float32)
+    thr = torch.tensor(iou_threshold, dtype=torch.float32).to(boxes.device)
     boxes = boxes.float()
-    over = pairwise_iou(boxes, boxes) > thr.to(boxes.device)
-    over = torch.triu(over, diagonal=1)            # row i suppresses j > i
     keep = torch.zeros((b, n), dtype=torch.bool, device=boxes.device)
     removed = torch.zeros((b, n), dtype=torch.bool, device=boxes.device)
     valid = valid.bool()
-    for i in range(n):
-        k = valid[:, i] & ~removed[:, i]
-        keep[:, i] = k
-        removed |= over[:, i, :] & k[:, None]
+    band = max(1, (1 << 24) // max(b * n, 1))
+    cols = torch.arange(n, device=boxes.device)
+    for i0 in range(0, n, band):
+        rows = torch.arange(i0, min(i0 + band, n), device=boxes.device)
+        over = pairwise_iou(boxes[:, i0:i0 + band], boxes) > thr
+        over &= cols[None, :] > rows[:, None]      # row i suppresses j > i
+        for r in range(rows.numel()):
+            i = i0 + r
+            k = valid[:, i] & ~removed[:, i]
+            keep[:, i] = k
+            removed |= over[:, r, :] & k[:, None]
     return keep
 
 
 def nms_mask_cuda(boxes: torch.Tensor, valid: torch.Tensor,
                   iou_threshold: float = 0.6, with_cycles: bool = False):
     """Launch ``csrc/nms.cu``: boxes (B, N, 4) f32, valid (B, N) bool, both
-    contiguous CUDA tensors; N <= ``MAX_N``. Returns the (B, N) bool
+    contiguous CUDA tensors, any N. Returns the (B, N) bool
     keep-mask; ``with_cycles`` launches the kernel's timed build and also
     returns its ``clock64`` readings, (B, 4) int64: cycles of the whole CTA,
     of its prologue (load and in-block words) and of the owners' turns summed
@@ -78,26 +87,31 @@ def nms_mask_cuda(boxes: torch.Tensor, valid: torch.Tensor,
     if not (boxes.is_contiguous() and valid.is_contiguous()):
         raise ValueError("boxes and valid must be contiguous")
     b, n = valid.shape
-    if n > MAX_N:
-        raise ValueError(f"the NMS kernel takes at most {MAX_N} boxes per image, got {n}")
     keep = torch.empty((b, n), dtype=torch.bool, device=boxes.device)
     lib = _cuda.library("nms")
     args = [ctypes.c_void_p(boxes.data_ptr()), ctypes.c_void_p(valid.data_ptr()),
             ctypes.c_void_p(keep.data_ptr()), ctypes.c_int(b), ctypes.c_int(n),
             ctypes.c_float(iou_threshold)]
     stream = ctypes.c_void_p(_cuda.stream_handle(boxes.device))
+    cycles = scratch = None
+    if with_cycles:
+        cycles = torch.empty((b, 4), dtype=torch.int64, device=boxes.device)
     with torch.cuda.device(boxes.device):
-        if with_cycles:
-            cycles = torch.empty((b, 4), dtype=torch.int64, device=boxes.device)
-            err = lib.w2t_nms_mask_timed(*args, ctypes.c_void_p(cycles.data_ptr()), stream)
-        else:
-            err = lib.w2t_nms_mask(*args, stream)
+        if n > SHARED_MAX_N:
+            lib.w2t_nms_scratch_bytes.restype = ctypes.c_longlong
+            per_image = lib.w2t_nms_scratch_bytes(ctypes.c_int(n))
+            scratch = torch.empty((b * per_image,), dtype=torch.uint8, device=boxes.device)
+        err = lib.w2t_nms_mask_any(
+            *args, ctypes.c_void_p(0 if cycles is None else cycles.data_ptr()),
+            ctypes.c_void_p(0 if scratch is None else scratch.data_ptr()), stream)
     _cuda.check(err, "nms")
     nms_mask_cuda.launches += 1
+    nms_mask_cuda.last_shape = (b, n)
     return (keep, cycles) if with_cycles else keep
 
 
 nms_mask_cuda.launches = 0
+nms_mask_cuda.last_shape = None  # (B, N) of the last launch
 
 
 def nms_mask_batched(boxes: torch.Tensor, valid: torch.Tensor,

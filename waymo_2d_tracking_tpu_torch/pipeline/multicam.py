@@ -1,0 +1,186 @@
+"""Multi-camera orchestration (counterpart of ``pipeline/multicam.py``, BASELINE
+config 4).
+
+All cameras of a chunk go through one shared-backbone detector batch of
+``chunk x C`` images (camera = batch axis), so TTA and the NMS kernel see
+the whole chunk at once: one NMS launch per chunk. Each camera keeps its own
+tracker state; the states are stacked on a leading camera axis and the
+tracker steps all cameras together (``tracker.track_step`` over (C, ...)),
+one auction launch per association stage carrying C problems: the
+counterpart of ``jax.vmap(track_step)``.
+
+Chunks have a fixed size; the tail is padded by repeating the last real
+frame (a blank tail longer than ``max_age`` would age every live track out
+of the final table that feeds the ``.gallery.npz`` sidecars), and the pad
+frames' outputs are cut. Outputs and the final per-camera states come back
+to the host through ``RollingFetch``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from waymo_2d_tracking_tpu_torch.config import Config
+from waymo_2d_tracking_tpu_torch.data.preprocess import letterbox_batch
+from waymo_2d_tracking_tpu_torch.io_out import submission as subm
+from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
+from waymo_2d_tracking_tpu_torch.pipeline.link import write_gallery_sidecar
+from waymo_2d_tracking_tpu_torch.pipeline.run import RollingFetch, concat_host, dispatch_detect
+from waymo_2d_tracking_tpu_torch.tracker import init_multicam_state, track_segment
+from waymo_2d_tracking_tpu_torch.types import Detections, TrackerState
+
+__all__ = ["MultiCamPipeline", "init_multicam_state", "run_context_groups", "split_cameras"]
+
+
+def split_cameras(dets: Detections, t: int, c: int) -> Detections:
+    """(t * c, D, ...) detections of a time-major camera batch -> (t, c, D, ...)."""
+    return Detections(**{
+        f.name: getattr(dets, f.name).reshape((t, c) + getattr(dets, f.name).shape[1:])
+        for f in dataclasses.fields(Detections)
+    })
+
+
+class MultiCamPipeline:
+    """Chunked multi-camera detect + track on ``device``.
+
+    A chunk is frames_u8 (chunk, num_cams, H, W, 3) uint8; the detector sees
+    (chunk * num_cams, ...), the tracker steps over the chunk's frames with
+    every camera at once. ``state_dict``: detector weights
+    (``weights.from_flax_numpy``); None draws seeded random weights.
+    """
+
+    def __init__(self, cfg: Config, num_cams: int = 5,
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                 device="cuda", seed: int = 0):
+        self.cfg = cfg
+        self.num_cams = num_cams
+        self.detector = DetectorRunner(cfg.detector, state_dict, device=device, seed=seed)
+        self.device = self.detector.device
+
+    def chunk_step(self, states: TrackerState, frames_u8: np.ndarray, src_hw):
+        """(states, host (chunk, cams, H, W, 3) u8) -> (states', outputs on
+        the device (chunk, cams, S, ...), scale): one shared-backbone batch
+        through the detector, then the camera-batched tracker."""
+        t, c = frames_u8.shape[:2]
+        flat = np.ascontiguousarray(frames_u8).reshape((t * c,) + frames_u8.shape[2:])
+        images, scale = letterbox_batch(torch.from_numpy(flat).to(self.device), src_hw,
+                                        self.cfg.detector.image_size)
+        dets = split_cameras(dispatch_detect(self.detector, self.cfg, images), t, c)
+        states, outputs = track_segment(states, dets, self.cfg.tracker)
+        return states, outputs, scale
+
+    def run_segments_group(self, segments, out_dir: str) -> List[dict]:
+        """Per-camera ``SegmentFrames`` of one context (equal timestamps and
+        resolutions) -> one submission JSONL and one gallery sidecar per
+        camera in ``out_dir``; returns the per-camera stats."""
+        cfg = self.cfg
+        chunk = cfg.pipeline.chunk_frames
+        sd = cfg.pipeline.decode_scale_denom
+        segments = sorted(segments, key=lambda s: s.camera_name)
+        assert len({tuple(s.timestamps) for s in segments}) == 1, (
+            "multicam group needs aligned timestamps"
+        )
+        assert len(segments) == self.num_cams
+        ctx = segments[0].context_name
+        t_total = segments[0].num_frames
+
+        states = init_multicam_state(cfg, self.num_cams, device=self.device)
+        iters = [s.chunk_iter(chunk, scale_denom=sd) for s in segments]
+        fetcher = RollingFetch(depth=cfg.pipeline.prefetch_depth)
+        src_hw = None
+        scale = 1.0
+        for _start in range(0, t_total, chunk):
+            blocks = [next(it) for it in iters]
+            hws = {b.shape[1:3] for b in blocks}
+            assert len(hws) == 1, (
+                "multicam shared-backbone batch needs equal-resolution "
+                f"cameras, got {sorted(hws)}; run mixed-resolution cameras "
+                "as separate single-camera segments instead"
+            )
+            frames = np.stack(blocks, axis=1)   # (chunk, cams, H, W, 3)
+            if src_hw is None:
+                src_hw = tuple(frames.shape[2:4])
+            states, outputs, scale = self.chunk_step(states, frames, src_hw)
+            fetcher.push(outputs)
+        stacked = concat_host(fetcher.finish(), t_total)
+        final_states = states.to_numpy()
+        total_scale = float(scale) / sd
+
+        os.makedirs(out_dir, exist_ok=True)
+        stats = []
+        for ci, seg in enumerate(segments):
+            records = subm.records_from_track_outputs(
+                stacked[:, ci], ctx, seg.timestamps, seg.camera_name,
+                scale=total_scale, interp_max_gap=cfg.pipeline.interp_max_gap,
+            )
+            path = os.path.join(out_dir, f"{ctx}_{seg.camera_name}.jsonl")
+            subm.write_jsonl(path, records)
+            write_gallery_sidecar(path, final_states, cam_index=ci)
+            stats.append({"context": ctx, "camera": seg.camera_name,
+                          "frames": seg.num_frames, "records": len(records),
+                          "tracks": len({r.object_id for r in records})})
+        return stats
+
+    def run(self, frames: np.ndarray, states: Optional[TrackerState] = None):
+        """Track a multi-camera clip, frames (T, cams, H, W, 3) uint8 on the
+        host. Returns (states on the device, host TrackOutputs (T, cams, S),
+        scale)."""
+        cfg = self.cfg
+        chunk = cfg.pipeline.chunk_frames
+        t_total = frames.shape[0]
+        src_hw = tuple(frames.shape[2:4])
+        if states is None:
+            states = init_multicam_state(cfg, self.num_cams, device=self.device)
+        fetcher = RollingFetch(depth=cfg.pipeline.prefetch_depth)
+        scale = 1.0
+        for start in range(0, t_total, chunk):
+            block = frames[start:start + chunk]
+            if block.shape[0] < chunk:
+                pad = chunk - block.shape[0]
+                block = np.concatenate([block, np.repeat(block[-1:], pad, axis=0)])
+            states, outputs, scale = self.chunk_step(states, block, src_hw)
+            fetcher.push(outputs)
+        return states, concat_host(fetcher.finish(), t_total), scale
+
+
+def run_context_groups(pipeline: MultiCamPipeline, segments, out_dir: str,
+                       fail_after: Optional[int] = None) -> List[dict]:
+    """Manifest-resumable multicam driver: per-camera segments grouped into
+    contexts; completed (context, camera) keys are recorded in
+    ``manifest.jsonl`` and a context whose cameras are all done is skipped on
+    rerun.
+
+    fail_after: test hook, raise after N completed contexts.
+    """
+    from waymo_2d_tracking_tpu_torch.pipeline.manifest import (
+        append_manifest,
+        load_done_keys,
+        segment_key,
+    )
+
+    done = load_done_keys(out_dir)
+    by_ctx: Dict[str, List] = {}
+    for seg in segments:
+        by_ctx.setdefault(seg.context_name, []).append(seg)
+
+    all_stats: List[dict] = []
+    n_run = 0
+    for ctx in sorted(by_ctx):
+        segs = by_ctx[ctx]
+        assert len(segs) == pipeline.num_cams, (
+            f"context {ctx} has {len(segs)} cameras, "
+            f"pipeline expects {pipeline.num_cams}"
+        )
+        if all(segment_key(s.context_name, s.camera_name) in done for s in segs):
+            continue
+        if fail_after is not None and n_run >= fail_after:
+            raise RuntimeError(f"fault injection: stopping after {fail_after} contexts")
+        stats = pipeline.run_segments_group(segs, out_dir)
+        append_manifest(out_dir, stats)
+        all_stats.extend(stats)
+        n_run += 1
+    return all_stats

@@ -1,0 +1,215 @@
+"""Online (streaming) serving: one frame, or one camera-rig tick, at a time
+(counterpart of ``pipeline/online.py``).
+
+``SegmentPipeline`` batches ``chunk_frames`` frames per step, which suits
+offline work but adds up to a chunk of latency. A live stream needs the
+opposite trade, minimum latency per frame: here one frame goes through
+letterbox -> ``dispatch_detect`` (NMS kernel inside) -> ``track_step``
+(auction kernel inside) on the device and only the tiny (S-slot) outputs
+come back. ``OnlineMultiCamTracker`` serves a whole rig per tick: every
+camera in one detector batch and the camera-batched tracker step, i.e.
+``MultiCamPipeline`` at T = 1.
+
+Every step is timed end to end (host frame -> records); ``latency_stats``
+gives p50/p90/p99/max in ms over a sliding window. ``warmup`` runs one dummy
+step (the kernels build and the allocator warms) and leaves the live state
+as it found it.
+
+Frames are decoded uint8 arrays; compressed ``bytes`` frames need JPEG
+ingest, a later slice of the port, and raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from collections import deque
+from typing import Deque, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from waymo_2d_tracking_tpu_torch.config import Config
+from waymo_2d_tracking_tpu_torch.data.preprocess import letterbox_batch
+from waymo_2d_tracking_tpu_torch.io_out import submission as subm
+from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
+from waymo_2d_tracking_tpu_torch.pipeline.run import dispatch_detect
+from waymo_2d_tracking_tpu_torch.tracker import init_multicam_state, init_state, track_step
+from waymo_2d_tracking_tpu_torch.types import TrackerState
+
+
+def _decoded(frame) -> np.ndarray:
+    if isinstance(frame, (bytes, bytearray)):
+        raise NotImplementedError(
+            "compressed (bytes) frames need JPEG ingest (data/jpeg.py), a later "
+            "slice of the port; pass decoded (H, W, 3) uint8 arrays")
+    return np.asarray(frame)
+
+
+def _clone(state: TrackerState) -> TrackerState:
+    return TrackerState(**{f.name: getattr(state, f.name).clone()
+                           for f in dataclasses.fields(TrackerState)})
+
+
+class _LatencyWindow:
+    """Sliding window of per-step wall times (seconds)."""
+
+    def __init__(self, window: int = 1024):
+        self._samples: Deque[float] = deque(maxlen=window)
+
+    @property
+    def maxlen(self) -> int:
+        return self._samples.maxlen
+
+    def add(self, seconds: float) -> None:
+        self._samples.append(seconds)
+
+    def last_ms(self) -> float:
+        return self._samples[-1] * 1e3 if self._samples else 0.0
+
+    def stats(self) -> dict:
+        if not self._samples:
+            return {"count": 0}
+        ms = np.asarray(self._samples) * 1e3
+        return {
+            "count": int(ms.size),
+            "mean_ms": round(float(ms.mean()), 3),
+            "p50_ms": round(float(np.percentile(ms, 50)), 3),
+            "p90_ms": round(float(np.percentile(ms, 90)), 3),
+            "p99_ms": round(float(np.percentile(ms, 99)), 3),
+            "max_ms": round(float(ms.max()), 3),
+        }
+
+
+class _Session:
+    """What both sessions share: the detector, the live track state, the
+    latency window, and one timed device step; a session says how a fresh
+    state looks and how the tracker consumes the step's detections."""
+
+    def __init__(self, cfg: Config, num_cams: int, state_dict, device, seed,
+                 context_name: str, latency_window: int):
+        self.cfg = cfg
+        self.num_cams = num_cams
+        self.context_name = context_name
+        self.detector = DetectorRunner(cfg.detector, state_dict, device=device, seed=seed)
+        self.device = self.detector.device
+        self._latency = _LatencyWindow(latency_window)
+        self.reset()
+
+    def _fresh_state(self) -> TrackerState:
+        raise NotImplementedError
+
+    def _track(self, state: TrackerState, dets):
+        raise NotImplementedError
+
+    def reset(self, clear_latency: bool = False) -> None:
+        """Fresh track table (new stream / scene cut). ``clear_latency``
+        also empties the latency window (per-stream percentiles); by default
+        the window spans the whole session."""
+        self.state = self._fresh_state()
+        self.frames_seen = 0
+        if clear_latency:
+            self._latency = _LatencyWindow(self._latency.maxlen)
+
+    def _device_step(self, state: TrackerState, frames_u8: np.ndarray, src_hw):
+        """(C, H, W, 3) host uint8 -> (state', host TrackOutputs, scale)."""
+        frames = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(self.device)
+        images, scale = letterbox_batch(frames, src_hw, self.cfg.detector.image_size)
+        state, outputs = self._track(state, dispatch_detect(self.detector, self.cfg, images))
+        return state, outputs.to_numpy(), scale
+
+    def _warmup(self, frames_u8: np.ndarray) -> float:
+        t0 = time.perf_counter()
+        saved = _clone(self.state)
+        self._device_step(self.state, frames_u8, tuple(frames_u8.shape[1:3]))
+        self.state = saved
+        return time.perf_counter() - t0
+
+    def _timed_step(self, frames_u8: np.ndarray):
+        t0 = time.perf_counter()
+        self.state, outputs, scale = self._device_step(self.state, frames_u8,
+                                                       tuple(frames_u8.shape[1:3]))
+        self._latency.add(time.perf_counter() - t0)
+        self.frames_seen += 1
+        return outputs, scale
+
+    def latency_stats(self) -> dict:
+        return self._latency.stats()
+
+    def last_latency_ms(self) -> float:
+        return self._latency.last_ms()
+
+
+class OnlineTracker(_Session):
+    """Single-camera streaming detect + track session.
+
+    >>> sess = OnlineTracker(cfg, state_dict)
+    >>> sess.warmup((1280, 1920))            # build and warm before serving
+    >>> for ts, frame in stream:
+    ...     records = sess.step(frame, ts)   # List[TrackRecord], this frame
+    """
+
+    def __init__(self, cfg: Config, state_dict: Optional[Dict[str, torch.Tensor]] = None,
+                 device="cuda", seed: int = 0, context_name: str = "online",
+                 camera_name: int = 1, latency_window: int = 1024):
+        self.camera_name = camera_name
+        super().__init__(cfg, 1, state_dict, device, seed, context_name, latency_window)
+
+    def _fresh_state(self) -> TrackerState:
+        return init_state(self.cfg.tracker, device=self.device)
+
+    def _track(self, state, dets):
+        return track_step(state, dets[0], self.cfg.tracker)
+
+    def warmup(self, src_hw: Tuple[int, int]) -> float:
+        """One dummy step on ``src_hw``-sized frames; the live state is kept.
+        Returns seconds."""
+        return self._warmup(np.zeros((1,) + tuple(src_hw) + (3,), np.uint8))
+
+    def step(self, frame, timestamp_micros: int) -> List[subm.TrackRecord]:
+        """One (H, W, 3) uint8 frame -> this frame's track records, timed
+        from the host frame to the records' arrays on the host."""
+        outputs, scale = self._timed_step(_decoded(frame)[None])
+        return subm.records_from_track_outputs(
+            outputs[None], self.context_name, [timestamp_micros], self.camera_name,
+            scale=float(scale))
+
+
+class OnlineMultiCamTracker(_Session):
+    """Streaming session over a fixed camera rig: one ``step`` takes the
+    rig's simultaneous frames, one shared detector batch, the camera-batched
+    tracker step."""
+
+    def __init__(self, cfg: Config, camera_names: Sequence[int],
+                 state_dict: Optional[Dict[str, torch.Tensor]] = None, device="cuda",
+                 seed: int = 0, context_name: str = "online", latency_window: int = 1024):
+        self.camera_names = list(camera_names)
+        super().__init__(cfg, len(self.camera_names), state_dict, device, seed,
+                         context_name, latency_window)
+
+    def _fresh_state(self) -> TrackerState:
+        return init_multicam_state(self.cfg, self.num_cams, device=self.device)
+
+    def _track(self, state, dets):
+        return track_step(state, dets, self.cfg.tracker)
+
+    @property
+    def states(self) -> TrackerState:
+        """The live per-camera states (leading camera axis)."""
+        return self.state
+
+    def warmup(self, src_hw: Tuple[int, int]) -> float:
+        """One dummy rig tick on ``src_hw``-sized frames; the live state is
+        kept. Returns seconds."""
+        return self._warmup(np.zeros((self.num_cams,) + tuple(src_hw) + (3,), np.uint8))
+
+    def step(self, frames: Sequence, timestamp_micros: int) -> List[subm.TrackRecord]:
+        """One rig tick: frames[i] belongs to ``camera_names[i]``."""
+        if len(frames) != self.num_cams:
+            raise ValueError(f"expected {self.num_cams} frames, got {len(frames)}")
+        outputs, scale = self._timed_step(np.stack([_decoded(f) for f in frames]))
+        records: List[subm.TrackRecord] = []
+        for i, cam in enumerate(self.camera_names):
+            records.extend(subm.records_from_track_outputs(
+                outputs[i][None], self.context_name, [timestamp_micros], cam,
+                scale=float(scale)))
+        return records

@@ -10,16 +10,17 @@ chunks in flight.
 
 Detection goes through ``dispatch_detect``: the plain batched forward, or the
 test-time augmentation union (``pipeline/tta.py``) when the preset asks for
-it. Later slices: JPEG ingest, the host ``cv2`` downscale for
-``decode_scale_denom > 1`` and output gap interpolation raise
-``NotImplementedError`` here; ``run_segments`` (manifest and gallery
-sidecar) is not ported yet.
+it. ``run_segments`` drives many segments with manifest resume and writes a
+``.gallery.npz`` sidecar beside each track file (``pipeline/link.py``).
+Later slices: JPEG ingest and the host ``cv2`` downscale for
+``decode_scale_denom > 1`` raise ``NotImplementedError`` here.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
-from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +31,7 @@ from waymo_2d_tracking_tpu_torch.io_out import submission as subm
 from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
 from waymo_2d_tracking_tpu_torch.pipeline.tta import detect_tta_batch
 from waymo_2d_tracking_tpu_torch.tracker import init_state, track_segment
-from waymo_2d_tracking_tpu_torch.types import Detections, TrackOutputs
+from waymo_2d_tracking_tpu_torch.types import Detections
 
 
 @dataclasses.dataclass
@@ -89,6 +90,16 @@ class RollingFetch:
         return self._host
 
 
+def concat_host(chunks: List, t_total: int):
+    """Host chunk outputs (numpy records, leading axis T) joined along T and
+    cut to the ``t_total`` real frames."""
+    record_type = type(chunks[0])
+    return record_type(**{
+        f.name: np.concatenate([getattr(o, f.name) for o in chunks])[:t_total]
+        for f in dataclasses.fields(record_type)
+    })
+
+
 def tta_active(p) -> bool:
     """True when the preset's TTA knobs ask for a multi-view candidate union."""
     return bool(p.tta_flip) or tuple(p.tta_scales) != (1.0,)
@@ -112,10 +123,6 @@ class SegmentPipeline:
 
     def __init__(self, cfg: Config, state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  device="cuda", seed: int = 0):
-        if cfg.pipeline.interp_max_gap > 0:
-            raise NotImplementedError(
-                "pipeline.interp_max_gap > 0 needs io_out/postprocess.py, "
-                "which is not ported yet (a later slice of the port)")
         self.cfg = cfg
         self.detector = DetectorRunner(cfg.detector, state_dict, device=device, seed=seed)
         self.device = self.detector.device
@@ -155,11 +162,7 @@ class SegmentPipeline:
             self.last_state = state.to_numpy()
         wall = time.perf_counter() - t0
 
-        record_type = Detections if detections_only else TrackOutputs
-        stacked = record_type(**{
-            f.name: np.concatenate([getattr(o, f.name) for o in outputs_host])[:t_total]
-            for f in dataclasses.fields(record_type)
-        })
+        stacked = concat_host(outputs_host, t_total)
         total_scale = float(scale) / sd
         if detections_only:
             records = subm.records_from_detections(
@@ -183,3 +186,42 @@ class SegmentPipeline:
         }
         return records, stats
 
+
+
+def run_segments(
+    pipeline: SegmentPipeline,
+    segments: Iterable[SegmentFrames],
+    out_dir: str,
+    fail_after: Optional[int] = None,
+) -> List[dict]:
+    """Drive many segments with manifest resume: completed segments are
+    recorded in ``manifest.jsonl`` and skipped on rerun; each segment's track
+    file is rewritten whole, with its ``.gallery.npz`` sidecar from the
+    final track table (``pipeline.last_state``).
+
+    fail_after: test hook, raise after N segments to exercise resume.
+    """
+    from waymo_2d_tracking_tpu_torch.pipeline.link import write_gallery_sidecar
+    from waymo_2d_tracking_tpu_torch.pipeline.manifest import (
+        append_manifest,
+        load_done_keys,
+        segment_key,
+    )
+
+    done = load_done_keys(out_dir)
+    all_stats = []
+    n_run = 0
+    for seg in segments:
+        if segment_key(seg.context_name, seg.camera_name) in done:
+            continue
+        if fail_after is not None and n_run >= fail_after:
+            raise RuntimeError(f"fault injection: stopping after {fail_after} segments")
+        records, stats = pipeline.run_segment(seg)
+        seg_file = os.path.join(out_dir, f"{seg.context_name}_{seg.camera_name}.jsonl")
+        subm.write_jsonl(seg_file, records)
+        if pipeline.last_state is not None:
+            write_gallery_sidecar(seg_file, pipeline.last_state)
+        append_manifest(out_dir, [stats])
+        all_stats.append(stats)
+        n_run += 1
+    return all_stats

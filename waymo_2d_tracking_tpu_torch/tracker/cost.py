@@ -1,6 +1,7 @@
 """Association cost fusion (counterpart of ``tracker/cost.py``): IoU,
 appearance cosine distance, class consistency and gating into one (S, D)
-cost plus forbid pair for the assignment."""
+cost plus forbid pair for the assignment. Every function takes leading
+camera axes, (..., S, ...) state against (..., D, ...) detections."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -19,8 +20,9 @@ from waymo_2d_tracking_tpu_torch.types import (
 
 
 def cosine_distance(track_embeds: torch.Tensor, det_embeds: torch.Tensor) -> torch.Tensor:
-    """1 - cosine similarity of L2-normalized (S, E) x (D, E) -> (S, D)."""
-    return 1.0 - track_embeds @ det_embeds.T
+    """1 - cosine similarity of L2-normalized (..., S, E) x (..., D, E) ->
+    (..., S, D)."""
+    return 1.0 - track_embeds @ det_embeds.transpose(-1, -2)
 
 
 def _buffer_boxes(boxes_xyxy: torch.Tensor, b: float) -> torch.Tensor:
@@ -35,9 +37,9 @@ def _buffer_boxes(boxes_xyxy: torch.Tensor, b: float) -> torch.Tensor:
 
 
 def _common_gates(forbid, state, dets, det_valid, track_mask):
-    forbid = forbid | (state.classes[:, None] != dets.classes[None, :])
-    forbid = forbid | ~track_mask[:, None]
-    return forbid | ~det_valid[None, :]
+    forbid = forbid | (state.classes[..., :, None] != dets.classes[..., None, :])
+    forbid = forbid | ~track_mask[..., :, None]
+    return forbid | ~det_valid[..., None, :]
 
 
 def stage1_cost(
@@ -48,12 +50,12 @@ def stage1_cost(
     Gates: IoU below threshold, class mismatch, cosine distance above the
     appearance gate (when appearance is on) and the chi-square motion gate
     (when ``motion_gate`` > 0)."""
-    track_boxes = boxes_cxcywh_to_xyxy(state.mean[:, :4])
+    track_boxes = boxes_cxcywh_to_xyxy(state.mean[..., :4])
     det_boxes = dets.boxes
     if cfg.iou_buffer > 0.0:
         track_boxes = _buffer_boxes(track_boxes, cfg.iou_buffer)
         det_boxes = _buffer_boxes(det_boxes, cfg.iou_buffer)
-    iou = pairwise_iou(track_boxes, det_boxes)                     # (S, D)
+    iou = pairwise_iou(track_boxes, det_boxes)                     # (..., S, D)
     cost = 1.0 - iou
     forbid = iou < cfg.iou_threshold
 
@@ -77,7 +79,7 @@ def byte_cost(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """IoU-only cost for the BYTE low-score second association, gated at
     ``byte_iou_threshold``."""
-    track_boxes = boxes_cxcywh_to_xyxy(state.mean[:, :4])
+    track_boxes = boxes_cxcywh_to_xyxy(state.mean[..., :4])
     iou = pairwise_iou(track_boxes, dets.boxes)
     forbid = iou < cfg.byte_iou_threshold
     return 1.0 - iou, _common_gates(forbid, state, dets, det_valid, track_mask)
@@ -91,14 +93,14 @@ def stage2_cost(
     distance over the EMA embedding and the gallery ring (``gallery_size``
     > 1), gated by ``appearance_gate`` and class."""
     cos = cosine_distance(state.embed, dets.embeds)
-    if state.gallery.shape[1] > 1:
-        cos_g = 1.0 - torch.einsum("ske,de->skd", state.gallery, dets.embeds)
-        k = state.gallery.shape[1]
+    k = state.gallery.shape[-2]
+    if k > 1:
+        cos_g = 1.0 - torch.einsum("...ske,...de->...skd", state.gallery, dets.embeds)
         k_valid = (
-            torch.arange(k, device=cos.device)[None, :]
-            < torch.clamp(state.gallery_count, max=k)[:, None]
+            torch.arange(k, device=cos.device)
+            < torch.clamp(state.gallery_count, max=k)[..., None]
         )
         cos_g = torch.where(k_valid[..., None], cos_g, torch.full_like(cos_g, 2.0))
-        cos = torch.minimum(cos, cos_g.amin(dim=1))
+        cos = torch.minimum(cos, cos_g.amin(dim=-2))
     forbid = cos > cfg.appearance_gate
     return cos, _common_gates(forbid, state, dets, det_valid, track_mask)

@@ -8,6 +8,9 @@ fixed-capacity slot table:
 - miss: TENTATIVE dies on its first miss; CONFIRMED survives ``max_age``
   misses, then becomes LOST (re-ID on) or EMPTY;
 - LOST tracks die after ``max_lost_age`` further frames.
+
+Every function takes leading camera axes: a state (..., S, ...) against
+detections (..., D, ...), each camera with its own id counter.
 """
 from __future__ import annotations
 
@@ -30,6 +33,18 @@ def _int8(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int8)
 
 
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-camera rows of a detection field: x (..., D, *F), idx (..., K)
+    long -> (..., K, *F). One camera (idx 1-D) indexes directly: one op
+    where the gather takes three, and a tracker step is bound by the ops
+    the host issues."""
+    if idx.dim() == 1:
+        return x[idx]
+    extra = x.dim() - idx.dim()
+    index = idx.reshape(idx.shape + (1,) * extra).expand(idx.shape + x.shape[idx.dim():])
+    return torch.gather(x, idx.dim() - 1, index)
+
+
 def apply_matches(
     state: TrackerState,
     dets: Detections,
@@ -40,50 +55,51 @@ def apply_matches(
 ) -> TrackerState:
     """Kalman-update matched slots and advance their lifecycle counters.
 
-    row_to_col (S,): det index per slot, -1 if unmatched. recovered (S,):
-    LOST slots re-identified this frame (stage 2); their motion state
-    re-initializes at the detection. embed_update (S,) or None: slots allowed
-    to update their appearance (None = all matched slots).
+    row_to_col (..., S): det index per slot, -1 if unmatched. recovered
+    (..., S): LOST slots re-identified this frame (stage 2); their motion
+    state re-initializes at the detection. embed_update (..., S) or None:
+    slots allowed to update their appearance (None = all matched slots).
     """
     matched = row_to_col >= 0
     emb_ok = matched if embed_update is None else (matched & embed_update)
     det_idx = torch.clamp(row_to_col, 0, dets.max_detections - 1).long()
-    meas = boxes_xyxy_to_cxcywh(dets.boxes[det_idx])                # (S, 4)
+    meas = boxes_xyxy_to_cxcywh(take(dets.boxes, det_idx))         # (..., S, 4)
+    det_score = take(dets.scores, det_idx)
 
     up_mean, up_cov = kalman.update(
-        state.mean, state.cov, meas, cfg.kalman, score=dets.scores[det_idx]
+        state.mean, state.cov, meas, cfg.kalman, score=det_score
     )
     re_mean, re_cov = kalman.init_track(meas, cfg.kalman)
     if cfg.recovery_momentum:
         # observation-centric momentum: velocity across the occlusion gap
         gap = (state.time_since_update + 1).to(meas.dtype)
-        vel = (meas - state.mean[..., :4]) / gap[:, None]
+        vel = (meas - state.mean[..., :4]) / gap[..., None]
         re_mean = torch.cat([meas, vel], dim=-1)
-    new_mean = torch.where(recovered[:, None], re_mean, up_mean)
-    new_cov = torch.where(recovered[:, None, None], re_cov, up_cov)
+    new_mean = torch.where(recovered[..., None], re_mean, up_mean)
+    new_cov = torch.where(recovered[..., None, None], re_cov, up_cov)
 
-    mean = torch.where(matched[:, None], new_mean, state.mean)
-    cov = torch.where(matched[:, None, None], new_cov, state.cov)
+    mean = torch.where(matched[..., None], new_mean, state.mean)
+    cov = torch.where(matched[..., None, None], new_cov, state.cov)
 
     hits = torch.where(matched, state.hits + 1, state.hits)
     tsu = torch.where(matched, torch.zeros_like(state.time_since_update),
                       state.time_since_update)
-    score = torch.where(matched, dets.scores[det_idx], state.score)
+    score = torch.where(matched, det_score, state.score)
 
     if cfg.embed_dim > 0:
-        det_e = dets.embeds[det_idx]
+        det_e = take(dets.embeds, det_idx)
         ema = cfg.embed_ema * state.embed + (1.0 - cfg.embed_ema) * det_e
         norm = torch.clamp(torch.linalg.vector_norm(ema, dim=-1, keepdim=True), min=1e-8)
-        embed = torch.where(emb_ok[:, None], ema / norm, state.embed)
+        embed = torch.where(emb_ok[..., None], ema / norm, state.embed)
         # gallery ring write: matched slots record the raw detection embed
-        k = state.gallery.shape[1]
+        k = state.gallery.shape[-2]
         slot_pos = torch.remainder(state.gallery_count, k)
         ring = torch.arange(k, dtype=slot_pos.dtype, device=slot_pos.device)
-        onehot = (slot_pos[:, None] == ring).to(state.gallery.dtype)  # (S, K)
-        write = onehot * emb_ok[:, None]
+        onehot = (slot_pos[..., None] == ring).to(state.gallery.dtype)  # (..., S, K)
+        write = onehot * emb_ok[..., None]
         gallery = (
             state.gallery * (1.0 - write[..., None])
-            + write[..., None] * det_e[:, None, :]
+            + write[..., None] * det_e[..., None, :]
         )
         gallery_count = torch.where(emb_ok, state.gallery_count + 1,
                                     state.gallery_count)
@@ -146,39 +162,41 @@ def apply_births(
     is_birth = dets.valid & det_unmatched & (dets.scores >= cfg.birth_score_threshold)
     empty = state.status == SLOT_EMPTY
 
-    birth_rank = torch.cumsum(is_birth.to(torch.int32), 0) - 1
-    empty_rank = (torch.cumsum(empty.to(torch.int32), 0) - 1).to(torch.int32)
-    n_births = is_birth.to(torch.int32).sum()
-    n_empty = empty.to(torch.int32).sum()
+    birth_rank = torch.cumsum(is_birth.to(torch.int32), -1) - 1
+    empty_rank = (torch.cumsum(empty.to(torch.int32), -1) - 1).to(torch.int32)
+    n_births = is_birth.to(torch.int32).sum(-1)
+    n_empty = empty.to(torch.int32).sum(-1)
     n_placed = torch.minimum(n_births, n_empty).to(torch.int32)
 
     # det index of the birth with rank r (scatter by rank; rank d drops)
-    det_by_rank = torch.full((d + 1,), -1, dtype=torch.int32, device=dev)
-    det_by_rank[torch.where(is_birth, birth_rank, d).long()] = torch.arange(
-        d, dtype=torch.int32, device=dev)
-    det_by_rank = det_by_rank[:d]
+    rank_idx = torch.where(is_birth, birth_rank, d).long()
+    det_by_rank = torch.full(rank_idx.shape[:-1] + (d + 1,), -1, dtype=torch.int32,
+                             device=dev).scatter_(
+        -1, rank_idx, torch.arange(d, dtype=torch.int32, device=dev).expand(rank_idx.shape))
+    det_by_rank = det_by_rank[..., :d]
 
-    slot_det = det_by_rank[torch.clamp(empty_rank, 0, d - 1).long()]
-    place = empty & (empty_rank < n_placed) & (slot_det >= 0)
+    slot_det = torch.gather(det_by_rank, -1, torch.clamp(empty_rank, 0, d - 1).long())
+    place = empty & (empty_rank < n_placed[..., None]) & (slot_det >= 0)
     det_idx = torch.clamp(slot_det, 0, d - 1).long()
 
-    meas = boxes_xyxy_to_cxcywh(dets.boxes[det_idx])
+    meas = boxes_xyxy_to_cxcywh(take(dets.boxes, det_idx))
     new_mean, new_cov = kalman.init_track(meas, cfg.kalman)
 
-    mean = torch.where(place[:, None], new_mean, state.mean)
-    cov = torch.where(place[:, None, None], new_cov, state.cov)
-    track_id = torch.where(place, state.next_id + empty_rank, state.track_id)
+    mean = torch.where(place[..., None], new_mean, state.mean)
+    cov = torch.where(place[..., None, None], new_cov, state.cov)
+    track_id = torch.where(place, state.next_id[..., None] + empty_rank, state.track_id)
     status = _int8(torch.where(place, SLOT_TENTATIVE, state.status))
     hits = torch.where(place, 1, state.hits)
     tsu = torch.where(place, 0, state.time_since_update)
     age = torch.where(place, 0, state.age)
-    classes = torch.where(place, dets.classes[det_idx], state.classes)
-    score = torch.where(place, dets.scores[det_idx], state.score)
+    classes = torch.where(place, take(dets.classes, det_idx), state.classes)
+    score = torch.where(place, take(dets.scores, det_idx), state.score)
     if cfg.embed_dim > 0:
-        embed = torch.where(place[:, None], dets.embeds[det_idx], state.embed)
+        det_e = take(dets.embeds, det_idx)
+        embed = torch.where(place[..., None], det_e, state.embed)
         fresh = torch.zeros_like(state.gallery)
-        fresh[:, 0, :] = dets.embeds[det_idx]
-        gallery = torch.where(place[:, None, None], fresh, state.gallery)
+        fresh[..., 0, :] = det_e
+        gallery = torch.where(place[..., None, None], fresh, state.gallery)
         gallery_count = torch.where(place, 1, state.gallery_count)
     else:
         embed, gallery, gallery_count = state.embed, state.gallery, state.gallery_count

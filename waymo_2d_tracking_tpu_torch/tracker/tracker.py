@@ -6,6 +6,13 @@ predict -> fused cost -> assignment -> masked lifecycle. On a CUDA tensor
 nothing in a step waits on the host (the auction kernel skips infeasible
 problems itself), so a chunk of steps queues on the device back to back.
 ``track_segment`` is the Python loop over T that replaces ``lax.scan``.
+
+Every function takes optional leading camera axes, the counterpart of
+``jax.vmap(track_step)``: a state of (C, S, ...) fields against detections
+(C, D, ...) steps all C cameras with the same ops, and each association
+stage is one auction launch carrying C problems. A single camera is the
+same code with no leading axis. ``init_multicam_state`` stacks C fresh
+states.
 """
 from __future__ import annotations
 
@@ -58,6 +65,15 @@ def init_state(cfg: TrackerConfig, device="cuda", dtype=torch.float32) -> Tracke
     )
 
 
+def init_multicam_state(cfg, num_cams: int, device="cuda",
+                        dtype=torch.float32) -> TrackerState:
+    """``num_cams`` fresh track tables stacked on a leading camera axis;
+    ``cfg`` is the whole ``Config`` (its ``tracker`` part is used), as in
+    the JAX package."""
+    single = init_state(cfg.tracker, device=device, dtype=dtype)
+    return TrackerState.stack([single] * num_cams)
+
+
 def _assign(cost, forbid, row_mask, col_mask, cfg: TrackerConfig):
     if cfg.assignment == "greedy":
         return greedy_assign(cost, row_mask=row_mask, col_mask=col_mask,
@@ -72,15 +88,16 @@ def _assign(cost, forbid, row_mask, col_mask, cfg: TrackerConfig):
 def track_step(
     state: TrackerState, dets: Detections, cfg: TrackerConfig
 ) -> Tuple[TrackerState, TrackOutputs]:
-    """Advance the tracker by one frame."""
+    """Advance the tracker by one frame: state (..., S, ...) and detections
+    (..., D, ...) with the same leading camera axes, if any."""
     det_valid = dets.valid & (dets.scores >= cfg.score_threshold)
 
     # 1. Kalman predict for active tracks; LOST tracks keep a frozen state
     active = (state.status == SLOT_TENTATIVE) | (state.status == SLOT_CONFIRMED)
     mean_p, cov_p = kalman.predict(state.mean, state.cov, cfg.kalman)
     state = state.replace(
-        mean=torch.where(active[:, None], mean_p, state.mean),
-        cov=torch.where(active[:, None, None], cov_p, state.cov),
+        mean=torch.where(active[..., None], mean_p, state.mean),
+        cov=torch.where(active[..., None, None], cov_p, state.cov),
     )
 
     # 2. stage-1 association: active tracks x detections (IoU + appearance)
@@ -100,8 +117,7 @@ def track_step(
         col_to_row = torch.maximum(col_to_row, ctrb)
         embed_update = ~low_matched
 
-    recovered = torch.zeros((cfg.max_tracks,), dtype=torch.bool,
-                            device=dets.boxes.device)
+    recovered = torch.zeros_like(active)
     if cfg.reid_recovery and cfg.embed_dim > 0:
         # 3. stage 2: LOST tracks x still-unmatched detections, appearance only
         lost = state.status == SLOT_LOST
@@ -122,11 +138,11 @@ def track_step(
         # duplicate-birth suppression against same-class live tracks, after
         # this frame's matches/misses
         live = (state.status == SLOT_TENTATIVE) | (state.status == SLOT_CONFIRMED)
-        same_class = dets.classes[:, None] == state.classes[None, :]
-        trk_boxes = boxes_cxcywh_to_xyxy(state.mean[:, :4])
-        overlap = pairwise_iou(dets.boxes, trk_boxes)              # (D, S)
-        max_iou = torch.where(live[None, :] & same_class, overlap,
-                              torch.zeros_like(overlap)).amax(dim=1)
+        same_class = dets.classes[..., :, None] == state.classes[..., None, :]
+        trk_boxes = boxes_cxcywh_to_xyxy(state.mean[..., :4])
+        overlap = pairwise_iou(dets.boxes, trk_boxes)              # (..., D, S)
+        max_iou = torch.where(live[..., None, :] & same_class, overlap,
+                              torch.zeros_like(overlap)).amax(dim=-1)
         birth_ok = birth_ok & (max_iou < cfg.birth_iou_threshold)
     state = lifecycle.apply_births(state, dets, birth_ok, cfg)
     state = state.replace(frame_idx=state.frame_idx + 1)
@@ -135,12 +151,12 @@ def track_step(
     # frames tentative tracks too (SORT's warm-up rule)
     fresh = state.time_since_update == 0
     emit = fresh & (state.status == SLOT_CONFIRMED)
-    warmup = (state.status == SLOT_TENTATIVE) & (state.frame_idx <= cfg.n_init)
+    warmup = (state.status == SLOT_TENTATIVE) & (state.frame_idx[..., None] <= cfg.n_init)
     emit = emit | (warmup & fresh)
 
     outputs = TrackOutputs(
         track_id=torch.where(emit, state.track_id, -1),
-        boxes=boxes_cxcywh_to_xyxy(state.mean[:, :4]),
+        boxes=boxes_cxcywh_to_xyxy(state.mean[..., :4]),
         scores=state.score,
         classes=state.classes,
         valid=emit,
@@ -151,8 +167,8 @@ def track_step(
 def track_segment(
     state: TrackerState, det_seq: Detections, cfg: TrackerConfig
 ) -> Tuple[TrackerState, TrackOutputs]:
-    """Run ``track_step`` over time-major Detections (T, ...). Returns the
-    final state and time-stacked TrackOutputs (T, S, ...)."""
+    """Run ``track_step`` over time-major Detections (T, ...) or (T, C, ...).
+    Returns the final state and time-stacked TrackOutputs (T, [C,] S, ...)."""
     outs = []
     for t in range(det_seq.boxes.shape[0]):
         state, out = track_step(state, det_seq[t], cfg)

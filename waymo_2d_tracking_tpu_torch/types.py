@@ -94,7 +94,9 @@ class TrackerState(_TensorRecord):
     time_since_update / age / classes (S,) i32, score (S,) f32,
     embed (S, E) f32, gallery (S, K, E) f32, gallery_count (S,) i32,
     next_id () i32 and frame_idx () i32 (0-d tensors, kept on the device so
-    a step never syncs with the host).
+    a step never syncs with the host). A multi-camera state puts a camera
+    axis C in front of every field: next_id and frame_idx are then (C,),
+    one id counter per camera.
     """
 
     mean: torch.Tensor
