@@ -38,6 +38,11 @@ Phases (any failed check raises, and the script exits non-zero):
    all) with zero-width, inverted and wholly outside boxes on an aligned and
    an unaligned feature tensor, timed beside the matmul form for one image
    and for a chunk of 128 images, each beside its bound;
+1b. ``area_downscale`` (the ``decode_scale_denom`` downscale) on the card
+   byte-equal to the same function on CPU tensors at d = 2 and 4 on
+   1280x1920, 886x1920 and 67x99 frames, with the time of a 128-frame
+   chunk; the prefetcher's pinned ring under a slow consumer at depth 1 and
+   2, every chunk intact;
 2. the trained fixtures in float32 with TF32 off through the whole slice:
    seed-5 and dense-clip MOTA/IDF1/IDSW floors, the ReID recovery gain, and
    the seed-5 clip with test-time augmentation (flip, scales 1.0 and 0.75)
@@ -46,28 +51,37 @@ Phases (any failed check raises, and the script exits non-zero):
    exactly its single-camera metrics; the seed-5 clip frame by frame through
    ``OnlineTracker``, the chunked run's records; the NMS and auction
    counters rising;
-3. six main paths at full width in bf16 with seeded random weights, kernel
-   counts set to 0 just before each run and read just after: on 640x960
-   frames after a warm-up chunk, the headline preset
-   (``configs/headline.yaml``) and its CenterNet twin
-   (``configs/headline_centernet.yaml``), 3 runs of 2 chunks of 128 frames
-   each, and the headline with TTA, 2 runs of 1 chunk; for each frames/s,
-   launch counts and the split of a chunk into letterbox / detector forward /
-   candidates + NMS + RoIAlign + ReID / tracker loop (CUDA events); for the
-   headline, as a separate measurement, the device's busy share of 3 traced
-   chunks (``torch.profiler``), each from its own trace, and the auction
-   and NMS kernels' device time in each. Then ``config4_multicam``
+3. seven main paths at full width in bf16 with seeded random weights,
+   kernel counts set to 0 just before each run and read just after (a
+   replay of the captured tracker step counts the launches it recorded):
+   after a warm-up chunk, the headline preset (``configs/headline.yaml``) on
+   640x960 frames at ``decode_scale_denom`` 1 and, as shipped, at its own
+   denom 2 on 1280x1920 frames (the render upscaled 2x: the card's downscale
+   must give the render back byte for byte, the records lie in 1280x1920
+   pixels), its CenterNet twin (``configs/headline_centernet.yaml``), 3 runs
+   of 2 chunks of 128 frames each, and the headline with TTA, 2 runs of 1
+   chunk; for each frames/s, launch counts (exactly 1 NMS a chunk and 1
+   auction a stage and frame) and the split of a chunk, already on the card,
+   into downscale / letterbox / detector forward / candidates + NMS +
+   RoIAlign + ReID / tracker loop (the captured step replayed) / the eager
+   loop on the same chunk (CUDA events), the graph's state and outputs
+   bit-identical to the eager loop's; for the headline, as a separate
+   measurement, the device's busy share of 3 traced chunks
+   (``torch.profiler``), each from its own trace, and the auction and NMS
+   kernels' device time in each, and the eager loop and the replays under
+   ``set_sync_debug_mode('error')``. Then ``config4_multicam``
    (``configs/config4_multicam.yaml``, 5 cameras of 1280x1920 frames
    through ``MultiCamPipeline.run_segments_group``, a warm-up chunk and 2
    runs of 4 chunks of 8 frames: camera-frames/s, peak memory, the split,
-   launches per chunk, which must be 1 NMS at B = 40 and 8 auction at P = 5),
+   launches per chunk, which must be 1 NMS at B = 40 and 8 auction at P = 5;
+   the captured step at P = 5, n = 128 bit-identical to the eager loop),
    ``online_rig`` (``OnlineMultiCamTracker`` on the same config and frames,
    32 ticks after a warm-up: latency percentiles, 1 NMS and 1 auction
    launch a tick) and ``online_headline`` (``OnlineTracker`` on the
    headline, 64 frames of 640x960 after a warm-up).
 
 The last two lines are the kernels' JSON record and the device record. It
-imports no JAX and nothing of the JAX package.
+imports no JAX, nothing of the JAX package and no cv2.
 """
 from __future__ import annotations
 
@@ -773,6 +787,52 @@ def phase_roi_align(torch, roi, card):
                 bound_ms=bnd, bound_by=by, library_ms=None, device_ms=dev_ms)
 
 
+def phase_downscale(np, torch, card):
+    """Phase 1b: ``area_downscale`` on the card gives the bytes of the same
+    function on CPU tensors (the bytes of cv2's INTER_AREA, which the CPU
+    tests hold it to) at d = 2 and 4, on the Waymo front (1280x1920) and
+    side (886x1920) camera sizes and an odd size; the time of a 128-frame
+    1280x1920 chunk; and the prefetcher's pinned ring under a slow consumer
+    at depth 1 and 2, every chunk arriving intact."""
+    from waymo_2d_tracking_tpu_torch.data.prefetch import DevicePrefetcher
+    from waymo_2d_tracking_tpu_torch.data.preprocess import area_downscale
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(50)
+    checked = []
+    for h, w in ((1280, 1920), (886, 1920), (67, 99)):
+        frames = torch.from_numpy(rng.integers(0, 256, (2, h, w, 3), dtype=np.uint8))
+        for d in (2, 4):
+            if not torch.equal(area_downscale(frames.to(dev), d).cpu(), area_downscale(frames, d)):
+                raise AssertionError(f"area_downscale on the card != CPU at {h}x{w}, d={d}")
+            checked.append(f"{h}x{w} d={d}")
+    chunk = torch.from_numpy(rng.integers(0, 256, (128, 1280, 1920, 3), dtype=np.uint8)).to(dev)
+    times = {d: cuda_time_ms(lambda: area_downscale(chunk, d), reps=5) for d in (2, 4)}
+    side = chunk[:, :886].contiguous()
+    side_ms = cuda_time_ms(lambda: area_downscale(side, 4), reps=5)
+    del chunk, side
+    log(f"[1b] area_downscale on the card == on the CPU, byte for byte, at {', '.join(checked)} "
+        f"({card}); a 128-frame 1280x1920 chunk {times[2]:.3f} ms at d=2 (integer 2x2 sums), "
+        f"{times[4]:.3f} ms at d=4; 128 frames of 886x1920 at d=4 (fractional weights) "
+        f"{side_ms:.3f} ms (median of 5, CUDA events)")
+
+    host = [rng.integers(0, 256, (8, 640, 960, 3), dtype=np.uint8) for _ in range(10)]
+    for depth in (1, 2):
+        seen = 0
+        with DevicePrefetcher(iter(host), depth=depth) as pf:
+            for i, x in enumerate(pf):
+                (x.float() * 2).sum()            # the consumer's stream reads the chunk
+                time.sleep(0.02)                 # a slow consumer: the worker refills the ring
+                if not torch.equal(x.cpu(), torch.from_numpy(host[i])):
+                    raise AssertionError(f"prefetch depth {depth}: chunk {i} arrived corrupted")
+                seen += 1
+        if seen != len(host):
+            raise AssertionError(f"prefetch depth {depth}: {seen} of {len(host)} chunks")
+    log(f"[1b] DevicePrefetcher: {len(host)} chunks of 8x640x960x3 through the pinned ring at "
+        f"depth 1 and 2 under a slow consumer, each equal to its host source")
+    return times
+
+
 # ----------------------------------------------------------------- phase 2
 
 def records_to_frames(np, records, num_frames):
@@ -907,34 +967,60 @@ def phase_fixtures(np, torch, nms, assign):
 
 # ----------------------------------------------------------------- phase 3
 
+def same_records(torch, a, b) -> bool:
+    """Every field of two state / output records bit for bit."""
+    import dataclasses
+
+    return all(torch.equal(getattr(a, f.name), getattr(b, f.name))
+               for f in dataclasses.fields(a))
+
+
 def chunk_split(torch, pipe, frames, chunk, tta):
-    """A chunk's stages with CUDA events, median of 3 chunks; a stage's time
-    includes any wait for the host to enqueue it. Under TTA the forward
-    stage holds every view's forward and candidates, the next the union's
-    NMS, RoIAlign and ReID."""
+    """A chunk's stages with CUDA events, median of 3 chunks, the chunk on
+    the device at source size as the prefetcher hands it over: the
+    ``decode_scale_denom`` downscale, the letterbox, the detector forward,
+    candidates + NMS + RoIAlign + ReID, the tracker loop as the pipeline runs
+    it (the captured step replayed per frame) and then the same chunk's eager
+    loop (``track_segment``), whose state and outputs the graph's must equal
+    bit for bit. A stage's time includes any wait for the host to enqueue
+    it. Under TTA the forward stage holds every view's forward and
+    candidates, the next the union's NMS, RoIAlign and ReID."""
+    from waymo_2d_tracking_tpu_torch.data.preprocess import area_downscale, letterbox_batch
     from waymo_2d_tracking_tpu_torch.pipeline.tta import tta_candidates_batched
     from waymo_2d_tracking_tpu_torch.tracker import init_state, track_segment
+    from waymo_2d_tracking_tpu_torch.tracker.graph import track_chunk
 
     cfg, runner = pipe.cfg, pipe.detector
-    stages = ("letterbox_ms", "detector_forward_ms",
-              "candidates_topk_nms_roi_align_reid_ms", "tracker_loop_ms")
+    sd = cfg.pipeline.decode_scale_denom
+    block = torch.from_numpy(frames[:chunk]).to("cuda")
+    src_hw = tuple(-(-x // sd) for x in frames.shape[1:3])
+    stages = ("downscale_ms", "letterbox_ms", "detector_forward_ms",
+              "candidates_topk_nms_roi_align_reid_ms", "tracker_loop_ms", "tracker_loop_eager_ms")
     runs = []
     for _ in range(3):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(7)]
         ev[0].record()
-        images, _ = pipe.preprocess(frames[:chunk], frames.shape[1:3])
+        small = area_downscale(block, sd)
         ev[1].record()
+        images, _ = letterbox_batch(small, src_hw, cfg.detector.image_size)
+        ev[2].record()
         head_out, p_feats = runner.forward(images)
         if tta:
             cand = tta_candidates_batched(runner, images, scales=tuple(cfg.pipeline.tta_scales),
                                           flip=cfg.pipeline.tta_flip, base_head_out=head_out)
-        ev[2].record()
-        dets = runner.select(cand, p_feats) if tta else runner.postprocess(head_out, p_feats)
         ev[3].record()
-        _, outs = track_segment(init_state(cfg.tracker, device="cuda"), dets, cfg.tracker)
+        dets = runner.select(cand, p_feats) if tta else runner.postprocess(head_out, p_feats)
         ev[4].record()
-        ev[4].synchronize()
-        runs.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
+        state, outs = track_chunk(init_state(cfg.tracker, device="cuda"), dets, cfg.tracker,
+                                  pipe._graphs)
+        ev[5].record()
+        e_state, e_outs = track_segment(init_state(cfg.tracker, device="cuda"), dets, cfg.tracker)
+        ev[6].record()
+        ev[6].synchronize()
+        runs.append([ev[i].elapsed_time(ev[i + 1]) for i in range(6)])
+        if not (same_records(torch, state, e_state) and same_records(torch, outs, e_outs)):
+            raise AssertionError("the captured tracker step's state or outputs differ from "
+                                 "the eager loop's on a chunk")
     split = {k: statistics.median(r[i] for r in runs) for i, k in enumerate(stages)}
     return split, runs, dets, outs
 
@@ -942,12 +1028,15 @@ def chunk_split(torch, pipe, frames, chunk, tta):
 def device_busy(torch, pipe, frames, chunk, card):
     """Device busy share, 3 chunks, each read from its own trace: the union
     of the device intervals (kernels, copies) over the span from the first
-    device event to the last. The profiler's own host cost lengthens the
-    span, so the idle share it gives is an upper estimate."""
+    device event to the last. The chunk goes host -> device (pageable),
+    downscale, letterbox, detector and the captured tracker step replayed
+    per frame. The profiler's own host cost lengthens the span, so the idle
+    share it gives is an upper estimate."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    from waymo_2d_tracking_tpu_torch.tracker import init_state, track_segment
+    from waymo_2d_tracking_tpu_torch.tracker import init_state
+    from waymo_2d_tracking_tpu_torch.tracker.graph import track_chunk
 
     cfg, runner = pipe.cfg, pipe.detector
     for rep in range(3):
@@ -955,7 +1044,8 @@ def device_busy(torch, pipe, frames, chunk, card):
             images, _ = pipe.preprocess(frames[:chunk], frames.shape[1:3])
             dets_p = runner.detect(images)
             with record_function("tracker_loop"):
-                track_segment(init_state(cfg.tracker, device="cuda"), dets_p, cfg.tracker)
+                track_chunk(init_state(cfg.tracker, device="cuda"), dets_p, cfg.tracker,
+                            pipe._graphs)
             torch.cuda.synchronize()
         events = prof.events()
         # device work only: record_function's range also shows on the device
@@ -1002,19 +1092,25 @@ def device_busy(torch, pipe, frames, chunk, card):
 
 
 def phase_main_path(np, torch, counters, card, name, preset, frames, chunks, runs,
-                    trace=False):
+                    trace=False, denom=1):
     """One main path at full width: warm-up chunk, then ``runs`` runs of
     ``chunks`` chunks with every kernel count set to 0 just before each run
-    and read just after; the chunk split; output checks. Returns the launch
-    counts of the first run."""
+    and read just after (replays of the captured tracker step count their
+    launches); the chunk split with the graph held to the eager loop; output
+    checks. ``denom`` overrides the preset's ``decode_scale_denom``; None
+    keeps the preset's own. Returns the launch counts of the first run and
+    that run's records."""
     from waymo_2d_tracking_tpu_torch.config import Config, _update
     from waymo_2d_tracking_tpu_torch.pipeline.run import (
         SegmentFrames, SegmentPipeline, tta_active,
     )
     from waymo_2d_tracking_tpu_torch.tracker import init_state, track_segment
+    from waymo_2d_tracking_tpu_torch.tracker.graph import track_chunk
 
-    cfg = _update(Config(), {**preset, "pipeline": {**preset["pipeline"],
-                                                    "decode_scale_denom": 1}})
+    pipeline = dict(preset["pipeline"])
+    if denom is not None:
+        pipeline["decode_scale_denom"] = denom
+    cfg = _update(Config(), {**preset, "pipeline": pipeline})
     chunk = cfg.pipeline.chunk_frames
     tta = tta_active(cfg.pipeline)
     pipe = SegmentPipeline(cfg, device="cuda", seed=0)
@@ -1024,7 +1120,7 @@ def phase_main_path(np, torch, counters, card, name, preset, frames, chunks, run
 
     # frames/s is the host's wall time per run
     seg = SegmentFrames(name, 1, list(range(chunks * chunk)), frames[chunk:(chunks + 1) * chunk])
-    fps_runs, launch_runs = [], []
+    fps_runs, launch_runs, first_records = [], [], None
     for _ in range(runs):
         zero_counts(counters)
         t0 = time.perf_counter()
@@ -1032,31 +1128,38 @@ def phase_main_path(np, torch, counters, card, name, preset, frames, chunks, run
         wall = time.perf_counter() - t0
         launch_runs.append(read_counts(counters))
         fps_runs.append(seg.num_frames / wall)
+        first_records = first_records or records
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[3] {name} main path, {runs} runs of {seg.num_frames} frames: frames/s "
-        f"{json.dumps(fps_runs)} ({card}); peak device memory {peak_gb:.2f} GB; "
+    log(f"[3] {name} main path (decode_scale_denom {cfg.pipeline.decode_scale_denom}, "
+        f"{frames.shape[1]}x{frames.shape[2]} frames), {runs} runs of {seg.num_frames} frames: "
+        f"frames/s {json.dumps(fps_runs)} ({card}); peak device memory {peak_gb:.2f} GB; "
         f"records {len(records)}; launches per run {json.dumps(launch_runs)}")
-    if min(min(lr["nms_mask"], lr["auction"]) for lr in launch_runs) == 0:
-        raise AssertionError(f"{name}: a kernel of the main path was not launched: {launch_runs}")
+    # one NMS a chunk, one auction a stage and frame, the replays counted
+    want = {"nms_mask": chunks, "auction": chunks * chunk * stages_of(cfg)}
+    if any(lr[k] != v for lr in launch_runs for k, v in want.items()):
+        raise AssertionError(f"{name}: expected {want} launches a run, got {launch_runs}")
 
     split, split_runs, dets, outs = chunk_split(torch, pipe, frames, chunk, tta)
     views = (2 if cfg.pipeline.tta_flip else 1) * len(cfg.pipeline.tta_scales)
-    log(f"[3] {name}: {chunk}-frame chunk split, median of 3 ({card}"
-        + (f"; {views} views, the forward stage holds every view's forward and candidates"
-           if tta else "") + f"): {json.dumps(split)}; each run: {json.dumps(split_runs)}")
+    log(f"[3] {name}: {chunk}-frame chunk split, median of 3, the chunk on the card at source "
+        f"size ({card}" + (f"; {views} views, the forward stage holds every view's forward and "
+                           f"candidates" if tta else "")
+        + f"): {json.dumps(split)}; each run: {json.dumps(split_runs)}; the captured step's "
+        f"state and outputs equal the eager loop's bit for bit in each run")
 
     if trace:
         device_busy(torch, pipe, frames, chunk, card)
-        # no synchronizing call inside the tracker loop: one that
-        # set_sync_debug_mode detects raises
+        # no synchronizing call inside the tracker loop, eager or replayed:
+        # one that set_sync_debug_mode detects raises
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
             track_segment(init_state(cfg.tracker, device="cuda"), dets[:16], cfg.tracker)
+            track_chunk(init_state(cfg.tracker, device="cuda"), dets, cfg.tracker, pipe._graphs)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        log(f"[3] {name}: 16 tracker steps ran with torch.cuda.set_sync_debug_mode('error'): "
-            "no synchronizing call detected")
+        log(f"[3] {name}: 16 eager tracker steps and {chunk} replays of the captured step ran "
+            "with torch.cuda.set_sync_debug_mode('error'): no synchronizing call detected")
 
     d = dets.to_numpy()
     if d.boxes.shape != (chunk, cfg.detector.max_detections, 4) or \
@@ -1078,7 +1181,37 @@ def phase_main_path(np, torch, counters, card, name, preset, frames, chunks, run
         f"max score {d.scores.max():.3f} (random weights)")
     del pipe
     torch.cuda.empty_cache()
-    return launch_runs[0]
+    return launch_runs[0], first_records
+
+
+def check_denom2(np, torch, card, frames, up, rec1, rec2):
+    """The headline at its own ``decode_scale_denom: 2`` on 1280x1920 frames
+    (the 640x960 render upscaled 2x by repetition): the card's downscale
+    gives back the 640x960 frames byte for byte, so the detector saw what
+    the denom-1 run saw; the records are finite and lie in 1280x1920 source
+    pixels, twice the denom-1 run's coordinates."""
+    from waymo_2d_tracking_tpu_torch.data.preprocess import area_downscale
+
+    for lo in range(0, up.shape[0], 64):
+        got = area_downscale(torch.from_numpy(up[lo:lo + 64]).to("cuda"), 2).cpu().numpy()
+        if not np.array_equal(got, frames[lo:lo + 64]):
+            raise AssertionError("denom 2: the downscale of the upscaled frames is not the render")
+    cx = np.array([[r.center_x, r.center_y, r.length, r.width] for r in rec2], float)
+    if not (len(rec2) and np.isfinite(cx).all()):
+        raise AssertionError("headline_denom2: no records or non-finite records")
+    if not (cx[:, 0].max() > 960 and cx[:, 1].max() > 640
+            and (np.abs(cx[:, :2]) < 2 * np.array([1920, 1280])).all()):
+        raise AssertionError("headline_denom2: record centres are not in 1280x1920 pixels")
+    key = lambda r: (r.timestamp_micros, r.object_id)   # noqa: E731
+    one = {key(r): r for r in rec1}
+    both = [(r, one[key(r)]) for r in rec2 if key(r) in one]
+    diff = max((abs(a.center_x - 2 * b.center_x) + abs(a.center_y - 2 * b.center_y)
+                for a, b in both), default=float("nan"))
+    log(f"[3] headline_denom2: area_downscale of the 2x-upscaled frames equals the 640x960 "
+        f"render byte for byte; {len(rec2)} records (denom-1 run {len(rec1)}), centres up to "
+        f"{cx[:, 0].max():.1f} x {cx[:, 1].max():.1f} in 1280x1920 pixels; {len(both)} share "
+        f"(frame, id) with the denom-1 run, max |centre - 2 x denom-1 centre| {diff:.4f} px "
+        f"({card})")
 
 
 def phase_headlines(np, torch, counters, card):
@@ -1093,14 +1226,21 @@ def phase_headlines(np, torch, counters, card):
         f"{time.perf_counter() - t0:.1f} s ({card})")
     tta = {**HEADLINE, "pipeline": {**HEADLINE["pipeline"], "tta_flip": True,
                                     "tta_scales": [1.0, 0.75]}}
-    return {
-        "headline": phase_main_path(np, torch, counters, card, "headline", HEADLINE, frames,
-                                    chunks=2, runs=3, trace=True),
-        "headline_centernet": phase_main_path(np, torch, counters, card, "headline_centernet",
-                                              HEADLINE_CENTERNET, frames, chunks=2, runs=3),
-        "headline_tta": phase_main_path(np, torch, counters, card, "headline_tta", tta, frames,
-                                        chunks=1, runs=2),
-    }, frames
+    paths = {}
+    paths["headline"], rec1 = phase_main_path(np, torch, counters, card, "headline", HEADLINE,
+                                              frames, chunks=2, runs=3, trace=True)
+    # the preset as shipped: decode_scale_denom 2 on source-size frames
+    up = frames.repeat(2, axis=1).repeat(2, axis=2)
+    paths["headline_denom2"], rec2 = phase_main_path(np, torch, counters, card,
+                                                     "headline_denom2", HEADLINE, up, chunks=2,
+                                                     runs=3, denom=None)
+    check_denom2(np, torch, card, frames, up, rec1, rec2)
+    del up
+    paths["headline_centernet"] = phase_main_path(np, torch, counters, card, "headline_centernet",
+                                                  HEADLINE_CENTERNET, frames, chunks=2, runs=3)[0]
+    paths["headline_tta"] = phase_main_path(np, torch, counters, card, "headline_tta", tta,
+                                            frames, chunks=1, runs=2)[0]
+    return paths, frames
 
 
 def render_cameras(np, cams: int, frames: int, seed0: int, hw=(640, 960), upscale: int = 2):
@@ -1150,6 +1290,7 @@ def phase_config4(np, torch, counters, card, frames):
     from waymo_2d_tracking_tpu_torch.pipeline.multicam import MultiCamPipeline, split_cameras
     from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentFrames
     from waymo_2d_tracking_tpu_torch.tracker import init_multicam_state, track_segment
+    from waymo_2d_tracking_tpu_torch.tracker.graph import track_chunk
 
     cfg = _update(Config(), {**CONFIG4, "tracker": {**CONFIG4["tracker"],
                                                     **CONFIG4_RANDOM_WEIGHT_GATES}})
@@ -1190,12 +1331,13 @@ def phase_config4(np, torch, counters, card, frames):
     if side["track_id"].shape != (128,) or side["embed"].shape != (128, 128):
         raise AssertionError(f"config4_multicam sidecar shapes {side['embed'].shape}")
 
-    # the split of one chunk, CUDA events, median of 3
+    # the split of one chunk, CUDA events, median of 3; the captured step
+    # (P = 5 cameras, n = 128) held to the eager loop bit for bit
     runner = pipe.detector
     block = frames[chunk:2 * chunk]
     runs = []
     for _ in range(3):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
         ev[0].record()
         flat = torch.from_numpy(block.reshape((chunk * cams,) + block.shape[2:])).to("cuda")
         images, _ = letterbox_batch(flat, tuple(block.shape[2:4]), cfg.detector.image_size)
@@ -1204,16 +1346,23 @@ def phase_config4(np, torch, counters, card, frames):
         ev[2].record()
         dets = runner.postprocess(head_out, p_feats)
         ev[3].record()
-        states, outs = track_segment(init_multicam_state(cfg, cams, device="cuda"),
-                                     split_cameras(dets, chunk, cams), cfg.tracker)
+        fresh = init_multicam_state(cfg, cams, device="cuda")
+        states, outs = track_chunk(fresh, split_cameras(dets, chunk, cams), cfg.tracker,
+                                   pipe._graphs)
         ev[4].record()
-        ev[4].synchronize()
-        runs.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
+        e_states, e_outs = track_segment(fresh, split_cameras(dets, chunk, cams), cfg.tracker)
+        ev[5].record()
+        ev[5].synchronize()
+        runs.append([ev[i].elapsed_time(ev[i + 1]) for i in range(5)])
+        if not (same_records(torch, states, e_states) and same_records(torch, outs, e_outs)):
+            raise AssertionError("config4_multicam: the captured step differs from the eager loop")
     names = ("letterbox_ms", "detector_forward_ms", "candidates_topk_nms_roi_align_reid_ms",
-             "tracker_loop_ms")
+             "tracker_loop_ms", "tracker_loop_eager_ms")
     split = {k: statistics.median(r[i] for r in runs) for i, k in enumerate(names)}
     log(f"[3] config4_multicam: {chunk}-frame chunk of {cams} cameras ({chunk * cams} images) "
-        f"split, median of 3 ({card}): {json.dumps(split)}; each run: {json.dumps(runs)}")
+        f"split, median of 3, the letterbox with its pageable copy ({card}): {json.dumps(split)}; "
+        f"each run: {json.dumps(runs)}; the captured step's states and outputs equal the eager "
+        f"loop's bit for bit in each run")
     d, o = dets.to_numpy(), outs.to_numpy()
     if not (np.isfinite(d.boxes).all() and np.isfinite(d.embeds).all()
             and np.isfinite(o.boxes).all()) or o.valid.shape != (chunk, cams, 128):
@@ -1320,6 +1469,7 @@ def main() -> int:
     kern["roi_align"] = phase_roi_align(torch, roi_align, smi)
     log(f"[1] launches in phase 1 (comparisons and timing, not a main path): "
         f"{json.dumps({k: fn.launches for k, fn in counters.items()})}")
+    phase_downscale(np, torch, smi)
     phase_fixtures(np, torch, nms, assign)
     paths, headline_frames = phase_headlines(np, torch, counters, smi)
     paths.update(phase_new_paths(np, torch, counters, smi, headline_frames))

@@ -1,4 +1,4 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, its
+"""The port stands alone: it imports neither JAX, the JAX package nor cv2, its
 config copy cannot drift from the JAX one, ``chip_smoke.py``'s preset dicts
 are ``configs/headline.yaml``, ``configs/headline_centernet.yaml`` and
 ``configs/config4_multicam.yaml``, and nothing falls back to the CPU on its
@@ -43,7 +43,7 @@ def test_port_imports_no_jax_in_a_fresh_process():
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "importlib.import_module('chip_smoke')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'waymo_2d_tracking_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'waymo_2d_tracking_tpu', 'cv2'))\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
@@ -54,7 +54,7 @@ def test_port_imports_no_jax_in_a_fresh_process():
     assert out.returncode == 0, out.stderr
     assert len(mods) >= 30
     for new in ("pipeline.multicam", "pipeline.online", "pipeline.offline", "pipeline.link",
-                "pipeline.manifest", "io_out.postprocess"):
+                "pipeline.manifest", "io_out.postprocess", "data.prefetch", "tracker.graph"):
         assert f"waymo_2d_tracking_tpu_torch.{new}" in mods, new
 
 
@@ -70,16 +70,20 @@ def test_sources_never_name_the_jax_package():
                         if pattern.search(line):
                             hits.append(f"{path}:{n}: {line.strip()}")
     assert not hits, hits
-    tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
-    for node in ast.walk(tree):
-        names = []
-        if isinstance(node, ast.Import):
-            names = [a.name for a in node.names]
-        elif isinstance(node, ast.ImportFrom):
-            names = [node.module or ""]
-        for name in names:
-            assert name.split(".")[0] not in ("jax", "jaxlib", "flax",
-                                              "waymo_2d_tracking_tpu"), name
+    sources = [os.path.join(ROOT, "chip_smoke.py")] + [
+        os.path.join(dirpath, f) for dirpath, _, files in os.walk(PKG_DIR)
+        for f in files if f.endswith(".py")]
+    for path in sources:
+        tree = ast.parse(open(path).read())
+        for node in ast.walk(tree):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            for name in names:
+                assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "cv2",
+                                                  "waymo_2d_tracking_tpu"), (path, name)
 
 
 def _fields(cls):
@@ -113,6 +117,7 @@ def test_entry_points_need_a_card_unless_cpu():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
     from waymo_2d_tracking_tpu_torch.config import Config, TrackerConfig
+    from waymo_2d_tracking_tpu_torch.data.prefetch import DevicePrefetcher, prefetch_to_device
     from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
     from waymo_2d_tracking_tpu_torch.ops.assign import auction_kernel_cuda
     from waymo_2d_tracking_tpu_torch.ops.nms import nms_mask_cuda
@@ -123,6 +128,8 @@ def test_entry_points_need_a_card_unless_cpu():
     from waymo_2d_tracking_tpu_torch.pipeline.online import OnlineMultiCamTracker, OnlineTracker
     from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentPipeline
     from waymo_2d_tracking_tpu_torch.tracker import Tracker, init_multicam_state, init_state
+    from waymo_2d_tracking_tpu_torch.tracker.graph import CapturedTracker
+    from waymo_2d_tracking_tpu_torch.types import Detections
 
     small = dict(backbone="resnet18slim", image_size=(64, 64), fpn_channels=32,
                  fpn_levels=(3, 4, 5), head_depth=1, head_channels=32, embed_dim=0)
@@ -131,7 +138,8 @@ def test_entry_points_need_a_card_unless_cpu():
                  lambda: DetectorRunner(cfg.detector), lambda: SegmentPipeline(cfg),
                  lambda: MultiCamPipeline(cfg, num_cams=2), lambda: init_multicam_state(cfg, 2),
                  lambda: OnlineTracker(cfg), lambda: OnlineMultiCamTracker(cfg, [1, 2]),
-                 lambda: track_detection_rows(cfg, [])):
+                 lambda: track_detection_rows(cfg, []), lambda: DevicePrefetcher([]),
+                 lambda: prefetch_to_device([])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     Tracker(TrackerConfig(), device="cpu").init()
@@ -140,6 +148,14 @@ def test_entry_points_need_a_card_unless_cpu():
     assert tuple(init_multicam_state(cfg, 2, device="cpu").next_id.shape) == (2,)
     OnlineTracker(cfg, device="cpu")
     OnlineMultiCamTracker(cfg, [1, 2], device="cpu")
+    assert list(DevicePrefetcher([], device="cpu")) == []
+    # the captured tracker step exists only on the card
+    state = init_state(TrackerConfig(), device="cpu")
+    det = Detections(boxes=torch.zeros(64, 4), scores=torch.zeros(64),
+                     classes=torch.zeros(64, dtype=torch.int32), embeds=torch.zeros(64, 128),
+                     valid=torch.zeros(64, dtype=torch.bool))
+    with pytest.raises(ValueError, match="CUDA"):
+        CapturedTracker(TrackerConfig(), state, det)
     # the kernel wrappers never run their plain versions for a CPU tensor
     with pytest.raises(ValueError, match="CUDA"):
         nms_mask_cuda(torch.zeros(1, 4, 4), torch.ones(1, 4, dtype=torch.bool))

@@ -14,6 +14,12 @@ frame (a blank tail longer than ``max_age`` would age every live track out
 of the final table that feeds the ``.gallery.npz`` sidecars), and the pad
 frames' outputs are cut. Outputs and the final per-camera states come back
 to the host through ``RollingFetch``.
+
+On the card the tracker steps replay a captured CUDA graph per frame
+(``tracker/graph.py``), one per (config, camera count, shapes). Under
+``decode_scale_denom > 1`` the chunk is downscaled (``area_downscale``)
+where it is letterboxed: on the card after the copy, at source size. As in
+the JAX package, no prefetch thread feeds this driver.
 """
 from __future__ import annotations
 
@@ -25,12 +31,13 @@ import numpy as np
 import torch
 
 from waymo_2d_tracking_tpu_torch.config import Config
-from waymo_2d_tracking_tpu_torch.data.preprocess import letterbox_batch
+from waymo_2d_tracking_tpu_torch.data.preprocess import area_downscale, letterbox_batch
 from waymo_2d_tracking_tpu_torch.io_out import submission as subm
 from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
 from waymo_2d_tracking_tpu_torch.pipeline.link import write_gallery_sidecar
 from waymo_2d_tracking_tpu_torch.pipeline.run import RollingFetch, concat_host, dispatch_detect
-from waymo_2d_tracking_tpu_torch.tracker import init_multicam_state, track_segment
+from waymo_2d_tracking_tpu_torch.tracker import init_multicam_state
+from waymo_2d_tracking_tpu_torch.tracker.graph import track_chunk
 from waymo_2d_tracking_tpu_torch.types import Detections, TrackerState
 
 __all__ = ["MultiCamPipeline", "init_multicam_state", "run_context_groups", "split_cameras"]
@@ -60,17 +67,22 @@ class MultiCamPipeline:
         self.num_cams = num_cams
         self.detector = DetectorRunner(cfg.detector, state_dict, device=device, seed=seed)
         self.device = self.detector.device
+        self._graphs: Dict = {}    # captured tracker steps (tracker/graph.py)
 
     def chunk_step(self, states: TrackerState, frames_u8: np.ndarray, src_hw):
-        """(states, host (chunk, cams, H, W, 3) u8) -> (states', outputs on
-        the device (chunk, cams, S, ...), scale): one shared-backbone batch
-        through the detector, then the camera-batched tracker."""
+        """(states, host (chunk, cams, H, W, 3) u8 at the size the chunk
+        iterator gave, ``src_hw`` the size after ``decode_scale_denom``) ->
+        (states', outputs on the device (chunk, cams, S, ...), scale): one
+        shared-backbone batch through the detector, then the camera-batched
+        tracker. Frames larger than ``src_hw`` are downscaled on the device."""
         t, c = frames_u8.shape[:2]
         flat = np.ascontiguousarray(frames_u8).reshape((t * c,) + frames_u8.shape[2:])
-        images, scale = letterbox_batch(torch.from_numpy(flat).to(self.device), src_hw,
-                                        self.cfg.detector.image_size)
+        frames = torch.from_numpy(flat).to(self.device)
+        if tuple(frames.shape[1:3]) != tuple(src_hw):
+            frames = area_downscale(frames, self.cfg.pipeline.decode_scale_denom)
+        images, scale = letterbox_batch(frames, src_hw, self.cfg.detector.image_size)
         dets = split_cameras(dispatch_detect(self.detector, self.cfg, images), t, c)
-        states, outputs = track_segment(states, dets, self.cfg.tracker)
+        states, outputs = track_chunk(states, dets, self.cfg.tracker, self._graphs)
         return states, outputs, scale
 
     def run_segments_group(self, segments, out_dir: str) -> List[dict]:
@@ -89,9 +101,11 @@ class MultiCamPipeline:
         t_total = segments[0].num_frames
 
         states = init_multicam_state(cfg, self.num_cams, device=self.device)
-        iters = [s.chunk_iter(chunk, scale_denom=sd) for s in segments]
+        # on the card full-size frames cross and chunk_step downscales there
+        host_sd = 1 if self.device.type == "cuda" else sd
+        iters = [s.chunk_iter(chunk, scale_denom=host_sd) for s in segments]
         fetcher = RollingFetch(depth=cfg.pipeline.prefetch_depth)
-        src_hw = None
+        src_hw = segments[0].scaled_hw(sd)
         scale = 1.0
         for _start in range(0, t_total, chunk):
             blocks = [next(it) for it in iters]
@@ -102,8 +116,6 @@ class MultiCamPipeline:
                 "as separate single-camera segments instead"
             )
             frames = np.stack(blocks, axis=1)   # (chunk, cams, H, W, 3)
-            if src_hw is None:
-                src_hw = tuple(frames.shape[2:4])
             states, outputs, scale = self.chunk_step(states, frames, src_hw)
             fetcher.push(outputs)
         stacked = concat_host(fetcher.finish(), t_total)
@@ -127,8 +139,9 @@ class MultiCamPipeline:
 
     def run(self, frames: np.ndarray, states: Optional[TrackerState] = None):
         """Track a multi-camera clip, frames (T, cams, H, W, 3) uint8 on the
-        host. Returns (states on the device, host TrackOutputs (T, cams, S),
-        scale)."""
+        host, taken at the size given (as in the JAX package, no decode
+        downscale). Returns (states on the device, host TrackOutputs (T,
+        cams, S), scale)."""
         cfg = self.cfg
         chunk = cfg.pipeline.chunk_frames
         t_total = frames.shape[0]

@@ -10,17 +10,22 @@ come back. ``OnlineMultiCamTracker`` serves a whole rig per tick: every
 camera in one detector batch and the camera-batched tracker step, i.e.
 ``MultiCamPipeline`` at T = 1.
 
+On the card the tracker step is a CUDA graph (``tracker/graph.py``) that
+each session captures for itself at its first step: the session's live track
+table lives in the graph's static buffers, so a step copies in one frame of
+detections and replays; ``state`` reads a copy of it, and ``reset`` and the
+warm-up write into it.
+
 Every step is timed end to end (host frame -> records); ``latency_stats``
 gives p50/p90/p99/max in ms over a sliding window. ``warmup`` runs one dummy
-step (the kernels build and the allocator warms) and leaves the live state
-as it found it.
+step (the kernels build, the tracker step is captured and the allocator
+warms) and leaves the live state as it found it.
 
 Frames are decoded uint8 arrays; compressed ``bytes`` frames need JPEG
 ingest, a later slice of the port, and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
-import dataclasses
 import time
 from collections import deque
 from typing import Deque, Dict, List, Optional, Sequence, Tuple
@@ -34,7 +39,8 @@ from waymo_2d_tracking_tpu_torch.io_out import submission as subm
 from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
 from waymo_2d_tracking_tpu_torch.pipeline.run import dispatch_detect
 from waymo_2d_tracking_tpu_torch.tracker import init_multicam_state, init_state, track_step
-from waymo_2d_tracking_tpu_torch.types import TrackerState
+from waymo_2d_tracking_tpu_torch.tracker.graph import CapturedTracker
+from waymo_2d_tracking_tpu_torch.types import Detections, TrackerState, TrackOutputs
 
 
 def _decoded(frame) -> np.ndarray:
@@ -43,11 +49,6 @@ def _decoded(frame) -> np.ndarray:
             "compressed (bytes) frames need JPEG ingest (data/jpeg.py), a later "
             "slice of the port; pass decoded (H, W, 3) uint8 arrays")
     return np.asarray(frame)
-
-
-def _clone(state: TrackerState) -> TrackerState:
-    return TrackerState(**{f.name: getattr(state, f.name).clone()
-                           for f in dataclasses.fields(TrackerState)})
 
 
 class _LatencyWindow:
@@ -83,7 +84,7 @@ class _LatencyWindow:
 class _Session:
     """What both sessions share: the detector, the live track state, the
     latency window, and one timed device step; a session says how a fresh
-    state looks and how the tracker consumes the step's detections."""
+    state looks and which of the step's detections the tracker takes."""
 
     def __init__(self, cfg: Config, num_cams: int, state_dict, device, seed,
                  context_name: str, latency_window: int):
@@ -93,13 +94,39 @@ class _Session:
         self.detector = DetectorRunner(cfg.detector, state_dict, device=device, seed=seed)
         self.device = self.detector.device
         self._latency = _LatencyWindow(latency_window)
+        self._graph: Optional[CapturedTracker] = None
         self.reset()
 
     def _fresh_state(self) -> TrackerState:
         raise NotImplementedError
 
-    def _track(self, state: TrackerState, dets):
+    def _frame_dets(self, dets: Detections) -> Detections:
+        """The detector batch's detections in the tracker's layout."""
         raise NotImplementedError
+
+    @property
+    def state(self) -> TrackerState:
+        """The live track table; on the card a copy of the captured step's
+        buffers, which the next step overwrites."""
+        return self._graph.current_state() if self._graph is not None else self._state
+
+    @state.setter
+    def state(self, value: TrackerState) -> None:
+        if self._graph is not None:
+            self._graph.load_state(value)
+        else:
+            self._state = value
+
+    def _track(self, dets: Detections) -> TrackOutputs:
+        """One tracker step on the live state: eager on the CPU, the
+        session's captured graph on the card."""
+        if self.device.type != "cuda":
+            self._state, outputs = track_step(self._state, dets, self.cfg.tracker)
+            return outputs
+        if self._graph is None:
+            self._graph = CapturedTracker(self.cfg.tracker, self._state, dets)
+            self._state = None
+        return self._graph.step(dets)
 
     def reset(self, clear_latency: bool = False) -> None:
         """Fresh track table (new stream / scene cut). ``clear_latency``
@@ -110,24 +137,24 @@ class _Session:
         if clear_latency:
             self._latency = _LatencyWindow(self._latency.maxlen)
 
-    def _device_step(self, state: TrackerState, frames_u8: np.ndarray, src_hw):
-        """(C, H, W, 3) host uint8 -> (state', host TrackOutputs, scale)."""
+    def _device_step(self, frames_u8: np.ndarray, src_hw):
+        """(C, H, W, 3) host uint8 -> (host TrackOutputs, scale); the live
+        state advances by one frame."""
         frames = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(self.device)
         images, scale = letterbox_batch(frames, src_hw, self.cfg.detector.image_size)
-        state, outputs = self._track(state, dispatch_detect(self.detector, self.cfg, images))
-        return state, outputs.to_numpy(), scale
+        dets = dispatch_detect(self.detector, self.cfg, images)
+        return self._track(self._frame_dets(dets)).to_numpy(), scale
 
     def _warmup(self, frames_u8: np.ndarray) -> float:
         t0 = time.perf_counter()
-        saved = _clone(self.state)
-        self._device_step(self.state, frames_u8, tuple(frames_u8.shape[1:3]))
+        saved = self.state
+        self._device_step(frames_u8, tuple(frames_u8.shape[1:3]))
         self.state = saved
         return time.perf_counter() - t0
 
     def _timed_step(self, frames_u8: np.ndarray):
         t0 = time.perf_counter()
-        self.state, outputs, scale = self._device_step(self.state, frames_u8,
-                                                       tuple(frames_u8.shape[1:3]))
+        outputs, scale = self._device_step(frames_u8, tuple(frames_u8.shape[1:3]))
         self._latency.add(time.perf_counter() - t0)
         self.frames_seen += 1
         return outputs, scale
@@ -157,8 +184,8 @@ class OnlineTracker(_Session):
     def _fresh_state(self) -> TrackerState:
         return init_state(self.cfg.tracker, device=self.device)
 
-    def _track(self, state, dets):
-        return track_step(state, dets[0], self.cfg.tracker)
+    def _frame_dets(self, dets):
+        return dets[0]
 
     def warmup(self, src_hw: Tuple[int, int]) -> float:
         """One dummy step on ``src_hw``-sized frames; the live state is kept.
@@ -189,12 +216,13 @@ class OnlineMultiCamTracker(_Session):
     def _fresh_state(self) -> TrackerState:
         return init_multicam_state(self.cfg, self.num_cams, device=self.device)
 
-    def _track(self, state, dets):
-        return track_step(state, dets, self.cfg.tracker)
+    def _frame_dets(self, dets):
+        return dets
 
     @property
     def states(self) -> TrackerState:
-        """The live per-camera states (leading camera axis)."""
+        """The live per-camera states (leading camera axis; on the card a
+        copy)."""
         return self.state
 
     def warmup(self, src_hw: Tuple[int, int]) -> float:

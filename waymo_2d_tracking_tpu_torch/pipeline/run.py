@@ -1,19 +1,26 @@
 """Per-segment orchestration (counterpart of ``pipeline/run.py``): the
 detect -> track hot path.
 
-Per chunk of ``chunk_frames`` frames: uint8 frames go to the device, are
-letterboxed there, run through the batched detector (NMS kernel inside), and
-the tracker steps through the chunk's frames with its state carried across
-chunks. Nothing in the chunk waits on the host; outputs come back once per
-chunk through ``RollingFetch``, which keeps at most ``prefetch_depth``
-chunks in flight.
+Per chunk of ``chunk_frames`` frames: ``data/prefetch.py DevicePrefetcher``
+copies the next uint8 chunk to the device from a worker thread (pinned
+buffers, a side stream) while the device computes on the current one; the
+chunk is downscaled by ``decode_scale_denom`` (``area_downscale``, the bytes
+of the JAX package's ``cv2`` INTER_AREA resize), letterboxed, run through
+the batched detector (NMS kernel inside), and the tracker steps through the
+chunk's frames with its state carried across chunks: on the card a CUDA
+graph of one step replayed per frame (``tracker/graph.py``), the
+counterpart of the JAX package's jitted ``lax.scan``. On the card the frames
+cross at their source size and are downscaled there; a CPU pipeline
+downscales on the host, in the prefetch worker, as the JAX package does.
+Outputs come back once per chunk through ``RollingFetch``, which keeps at
+most ``prefetch_depth`` chunks in flight. Boxes map back to source pixels
+through the letterbox scale and the decode scale.
 
 Detection goes through ``dispatch_detect``: the plain batched forward, or the
 test-time augmentation union (``pipeline/tta.py``) when the preset asks for
 it. ``run_segments`` drives many segments with manifest resume and writes a
 ``.gallery.npz`` sidecar beside each track file (``pipeline/link.py``).
-Later slices: JPEG ingest and the host ``cv2`` downscale for
-``decode_scale_denom > 1`` raise ``NotImplementedError`` here.
+JPEG ingest is a later slice of the port.
 """
 from __future__ import annotations
 
@@ -26,11 +33,13 @@ import numpy as np
 import torch
 
 from waymo_2d_tracking_tpu_torch.config import Config
-from waymo_2d_tracking_tpu_torch.data.preprocess import letterbox_batch
+from waymo_2d_tracking_tpu_torch.data.prefetch import DevicePrefetcher
+from waymo_2d_tracking_tpu_torch.data.preprocess import area_downscale, letterbox_batch
 from waymo_2d_tracking_tpu_torch.io_out import submission as subm
 from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
 from waymo_2d_tracking_tpu_torch.pipeline.tta import detect_tta_batch
-from waymo_2d_tracking_tpu_torch.tracker import init_state, track_segment
+from waymo_2d_tracking_tpu_torch.tracker import init_state
+from waymo_2d_tracking_tpu_torch.tracker.graph import track_chunk
 from waymo_2d_tracking_tpu_torch.types import Detections
 
 
@@ -51,18 +60,25 @@ class SegmentFrames:
     def source_hw(self) -> Tuple[int, int]:
         return tuple(self.frames.shape[1:3])
 
+    def scaled_hw(self, scale_denom: int = 1) -> Tuple[int, int]:
+        """(H, W) after a downscale by ``scale_denom``: ceil(src / denom),
+        what libjpeg's DCT-scaled decode gives."""
+        h, w = self.source_hw()
+        return (-(-h // scale_denom), -(-w // scale_denom))
+
     def chunk_iter(self, chunk: int, scale_denom: int = 1) -> Iterator[np.ndarray]:
-        """Yield (chunk, H, W, 3) uint8 arrays; the last chunk is padded by
-        REPEATING the final real frame, not zeros: the tracker treats pad
-        frames as real ones, and a blank tail longer than max_age would age
-        out every live track. Pad-frame outputs are trimmed by the caller."""
-        if scale_denom > 1:
-            raise NotImplementedError(
-                "decode_scale_denom > 1 on pre-decoded frames needs the host "
-                "cv2 downscale, a later slice of the port; feed frames at the "
-                "decoded size with decode_scale_denom=1")
+        """Yield (chunk, H, W, 3) uint8 arrays, downscaled on the host by
+        ``scale_denom`` (``area_downscale`` on CPU tensors: the bytes of the
+        JAX package's ``cv2.resize(..., INTER_AREA)``). The last chunk is
+        padded by REPEATING the final real frame, not zeros: the tracker
+        treats pad frames as real ones, and a blank tail longer than max_age
+        would age out every live track. Pad-frame outputs are trimmed by the
+        caller."""
         for start in range(0, self.num_frames, chunk):
             block = self.frames[start:start + chunk]
+            if scale_denom > 1:
+                block = area_downscale(torch.from_numpy(np.ascontiguousarray(block)),
+                                       scale_denom).numpy()
             if block.shape[0] < chunk:
                 pad = chunk - block.shape[0]
                 block = np.concatenate([block, np.repeat(block[-1:], pad, axis=0)])
@@ -127,11 +143,17 @@ class SegmentPipeline:
         self.detector = DetectorRunner(cfg.detector, state_dict, device=device, seed=seed)
         self.device = self.detector.device
         self.last_state = None
+        self._graphs: Dict = {}    # captured tracker steps (tracker/graph.py)
 
     def preprocess(self, frames_u8: np.ndarray, src_hw):
-        """Host uint8 chunk -> letterboxed images on the device, scale."""
+        """Host (N, H, W, 3) uint8 frames at the source size ``src_hw`` ->
+        downscaled by ``decode_scale_denom`` and letterboxed on the device;
+        returns (images, letterbox scale)."""
         frames = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(self.device)
-        return letterbox_batch(frames, src_hw, self.cfg.detector.image_size)
+        sd = self.cfg.pipeline.decode_scale_denom
+        frames = area_downscale(frames, sd)
+        h, w = src_hw
+        return letterbox_batch(frames, (-(-h // sd), -(-w // sd)), self.cfg.detector.image_size)
 
     def run_segment(
         self, segment: SegmentFrames, detections_only: bool = False,
@@ -142,21 +164,28 @@ class SegmentPipeline:
         chunk = cfg.pipeline.chunk_frames
         sd = cfg.pipeline.decode_scale_denom
         t_total = segment.num_frames
-        src_hw = segment.source_hw()
+        src_hw = segment.scaled_hw(sd)
+        on_card = self.device.type == "cuda"
 
         state = init_state(cfg.tracker, device=self.device)
         self.last_state = None
         scale = 1.0
         t0 = time.perf_counter()
         fetcher = RollingFetch(depth=cfg.pipeline.prefetch_depth)
-        for block in segment.chunk_iter(chunk, scale_denom=sd):
-            images, scale = self.preprocess(block, src_hw)
-            dets = dispatch_detect(self.detector, cfg, images)
-            if detections_only:
-                fetcher.push(dets)
-            else:
-                state, outputs = track_segment(state, dets, cfg.tracker)
-                fetcher.push(outputs)
+        # on the card full-size frames cross and are downscaled there
+        blocks = segment.chunk_iter(chunk, scale_denom=1 if on_card else sd)
+        with DevicePrefetcher(blocks, depth=cfg.pipeline.prefetch_depth,
+                              device=self.device) as prefetcher:
+            for frames in prefetcher:
+                if on_card:
+                    frames = area_downscale(frames, sd)
+                images, scale = letterbox_batch(frames, src_hw, cfg.detector.image_size)
+                dets = dispatch_detect(self.detector, cfg, images)
+                if detections_only:
+                    fetcher.push(dets)
+                else:
+                    state, outputs = track_chunk(state, dets, cfg.tracker, self._graphs)
+                    fetcher.push(outputs)
         outputs_host = fetcher.finish()
         if not detections_only:
             self.last_state = state.to_numpy()

@@ -5,7 +5,9 @@
 predict -> fused cost -> assignment -> masked lifecycle. On a CUDA tensor
 nothing in a step waits on the host (the auction kernel skips infeasible
 problems itself), so a chunk of steps queues on the device back to back.
-``track_segment`` is the Python loop over T that replaces ``lax.scan``.
+``track_segment`` is the Python loop over T that replaces ``lax.scan``: the
+CPU path, and the reference that the card's captured step
+(``tracker/graph.py``) is held to.
 
 Every function takes optional leading camera axes, the counterpart of
 ``jax.vmap(track_step)``: a state of (C, S, ...) fields against detections
@@ -177,11 +179,14 @@ def track_segment(
 
 
 class Tracker:
-    """Config + device holder with ``init``/``step``/``run``."""
+    """Config + device holder with ``init``/``step``/``run``. On the card
+    ``run`` replays a captured step (``tracker/graph.py``), one per shape,
+    kept on this object."""
 
     def __init__(self, cfg: Optional[TrackerConfig] = None, device="cuda"):
         self.cfg = cfg or TrackerConfig()
         self.device = resolve_device(device)
+        self._graphs = {}
 
     def init(self) -> TrackerState:
         return init_state(self.cfg, device=self.device)
@@ -190,6 +195,8 @@ class Tracker:
         return track_step(state, dets, self.cfg)
 
     def run(self, det_seq: Detections, state: Optional[TrackerState] = None):
+        from waymo_2d_tracking_tpu_torch.tracker.graph import track_chunk
+
         if state is None:
             state = self.init()
-        return track_segment(state, det_seq.to(self.device), self.cfg)
+        return track_chunk(state, det_seq.to(self.device), self.cfg, self._graphs)
