@@ -50,15 +50,32 @@ Phases (any failed check raises, and the script exits non-zero):
    ``MultiCamPipeline.run_segments_group`` (JSONL read back), each camera
    exactly its single-camera metrics; the seed-5 clip frame by frame through
    ``OnlineTracker``, the chunked run's records; the NMS and auction
-   counters rising;
-3. seven main paths at full width in bf16 with seeded random weights,
+   counters rising; with ``quant='int8'`` (scope 'trunk') both clips
+   through ``run_segment`` (calibrated on the first chunk) above the JAX
+   test's floors and beside the JAX CPU metrics, the seed-5 clip frame by
+   frame through an int8 ``OnlineTracker`` (calibrated on its first frame),
+   and an uncalibrated int8 detect refused;
+2b. ingest: the committed TFRecord fixture through the native scanner
+   (index, metadata, JPEG bytes against the Python walk and the committed
+   SHA-256), the machine's libjpeg probed, and where the decoder shim
+   builds, the decode's SHA-256 beside the committed ones and the JPEG
+   bytes through ``run_segment`` and ``OnlineTracker`` under
+   ``headline_int8`` against the same frames decoded; where libjpeg is
+   absent the decoder must raise;
+3. eight main paths at full width in bf16 (one with int8 trunk convs) with
+   seeded random weights,
    kernel counts set to 0 just before each run and read just after (a
    replay of the captured tracker step counts the launches it recorded):
    after a warm-up chunk, the headline preset (``configs/headline.yaml``) on
    640x960 frames at ``decode_scale_denom`` 1 and, as shipped, at its own
    denom 2 on 1280x1920 frames (the render upscaled 2x: the card's downscale
    must give the render back byte for byte, the records lie in 1280x1920
-   pixels), its CenterNet twin (``configs/headline_centernet.yaml``), 3 runs
+   pixels), ``headline_int8`` (``configs/headline_int8.yaml``, the w8a8
+   trunk, as shipped at denom 2 on the same 1280x1920 frames: int8 GEMMs a
+   chunk, which must be 0 on every other path, its forward beside the bf16
+   one, and its quantized convs timed alone: the GEMM, the whole int8 conv
+   and the bf16 cuDNN conv they replace), its CenterNet twin
+   (``configs/headline_centernet.yaml``), 3 runs
    of 2 chunks of 128 frames each, and the headline with TTA, 2 runs of 1
    chunk; for each frames/s, launch counts (exactly 1 NMS a chunk and 1
    auction a stage and frame) and the split of a chunk, already on the card,
@@ -131,6 +148,10 @@ HEADLINE_CENTERNET = {
     "detector": {**HEADLINE["detector"], "head_family": "centernet", "centernet_level": 3},
 }
 
+# configs/headline_int8.yaml: the headline with a w8a8 int8 trunk (backbone
+# and FPN; quant_scope 'trunk'); a CPU test pins it to the yaml file.
+HEADLINE_INT8 = {**HEADLINE, "detector": {**HEADLINE["detector"], "quant": "int8"}}
+
 # configs/config4_multicam.yaml (BASELINE config 4: 5 cameras, one shared
 # detector batch, per-camera trackers): the default ResNet-50 / FPN P3-P7
 # detector at 640x960 with ReID 128, the auction tracker at S = D = 128,
@@ -152,9 +173,11 @@ CONFIG4 = {
 CONFIG4_RANDOM_WEIGHT_GATES = {"score_threshold": 0.1, "birth_score_threshold": 0.15}
 
 # Published H100 SXM peaks (dense): HBM bandwidth, and float32 outside the
-# tensor cores (every kernel here does scalar f32 / integer work).
+# tensor cores (every kernel here does scalar f32 / integer work); int8 on
+# the tensor cores for the int8 GEMMs of the quantized trunk.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_INT8_OPS_PER_S = 1979e12
 
 # tests/golden/test_pixels_to_mota.py and test_reid_recovery.py settings
 PIXELS_DET = dict(
@@ -167,6 +190,13 @@ PIXELS_TRK = dict(
     max_tracks=32, max_detections=32, embed_dim=0, n_init=2, max_age=5,
     iou_threshold=0.3, score_threshold=0.55, birth_score_threshold=0.65,
 )
+
+# The JAX package's int8 metrics on the two pixel clips (quant_scope 'trunk',
+# CPU; tests/golden/test_pixels_to_mota.py test_int8_quality_through_trained_fixture)
+# and that test's floors (MOTA >=, IDF1 >=, IDSW <=).
+INT8_JAX_REF = {"seed5": {"mota": 0.6912, "idf1": 0.8504, "num_idsw": 8},
+                "dense": {"mota": 0.4246, "idf1": 0.6746, "num_idsw": 6}}
+INT8_FLOORS = {"seed5": (0.66, 0.82, 10), "dense": (0.40, 0.65, 8)}
 
 # The JAX package's metrics on the seed-5 clip with TTA (flip, scales 1.0 and
 # 0.75), chunk 16, on the CPU: tools/jax_reference_seed5_tta.py.
@@ -947,6 +977,8 @@ def phase_fixtures(np, torch, nms, assign):
     if diff > 1e-2:
         raise AssertionError(f"online seed-5 records differ from the chunked run by {diff}")
 
+    phase_fixtures_int8(np, torch, run, config, seed5, dense, frames5, gt5, sd)
+
     reid_det = {**PIXELS_DET, "embed_dim": 32}
     clip = SyntheticClipConfig(num_frames=100, num_objects=6, image_size=(1024, 1536),
                                seed=29, occlusion_gap=(30, 52), texture_amp=0.25)
@@ -963,6 +995,199 @@ def phase_fixtures(np, torch, nms, assign):
     log(f"[2] kernel launches in the fixture phase: nms {launches[0]}, auction {launches[1]}")
     if min(launches) == 0:
         raise AssertionError("a kernel did not run in the fixture phase")
+
+
+def phase_fixtures_int8(np, torch, run, config, seed5, dense, frames5, gt5, sd):
+    """The trained fixture with ``quant='int8'`` (scope 'trunk'): both pixel
+    clips through ``run_segment``, calibrating on the first chunk, against
+    the JAX test's floors and beside the JAX CPU metrics; the seed-5 clip
+    frame by frame through an int8 ``OnlineTracker`` (calibrating on its
+    first frame); an uncalibrated int8 detector refusing to detect."""
+    from waymo_2d_tracking_tpu_torch.config import DetectorConfig
+    from waymo_2d_tracking_tpu_torch.eval.mot import evaluate_mot, gt_to_frames
+    from waymo_2d_tracking_tpu_torch.models import quant
+    from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
+    from waymo_2d_tracking_tpu_torch.pipeline.online import OnlineTracker
+
+    int8_det = {**PIXELS_DET, "quant": "int8", "quant_scope": "trunk"}
+    quant.int8_gemm.launches = 0
+    for name, clip in (("seed5", seed5), ("dense", dense)):
+        m = run(int8_det, clip, sd, birth_iou_threshold=0.3)[0]
+        got, (mota, idf1, idsw) = m.as_dict(), INT8_FLOORS[name]
+        log(f"[2] int8 {name} clip: mota {got['mota']:.4f} idf1 {got['idf1']:.4f} idsw "
+            f"{got['num_idsw']} (JAX CPU {json.dumps(INT8_JAX_REF[name])}; floors >= {mota} / "
+            f">= {idf1} / <= {idsw}); {json.dumps(got)}")
+        if not (m.mota >= mota and m.idf1 >= idf1 and m.num_idsw <= idsw):
+            raise AssertionError(f"int8 {name} clip misses the JAX test's floors")
+    gemms = quant.int8_gemm.launches
+    sess = OnlineTracker(config(int8_det, birth_iou_threshold=0.3), sd, device="cuda",
+                         context_name="fixture", camera_name=1)
+    sess.warmup(tuple(frames5.shape[1:3]))
+    online = []
+    for t in range(seed5.num_frames):
+        online.extend(sess.step(frames5[t], t))
+    m = evaluate_mot(gt_to_frames(gt5), records_to_frames(np, online, seed5.num_frames))
+    log(f"[2] int8 online seed-5 clip frame by frame (calibrated on its first frame): "
+        f"{len(online)} records, {json.dumps(m.as_dict())}; latency "
+        f"{json.dumps(sess.latency_stats())}; int8 GEMMs: {gemms} in the two chunked clips, "
+        f"{quant.int8_gemm.launches - gemms} online")
+    if not (online and sess._calibrated and quant.is_calibrated(sess.detector.module)
+            and quant.int8_gemm.launches > gemms > 0):
+        raise AssertionError("int8 online session did not calibrate or serve int8")
+    images = torch.zeros((2, 256, 384, 3), device="cuda")
+    try:
+        DetectorRunner(DetectorConfig(**int8_det), sd, device="cuda").detect(images)
+    except RuntimeError as e:
+        log(f"[2] an uncalibrated int8 detect raises: {str(e)[:80]}...")
+    else:
+        raise AssertionError("an uncalibrated int8 detector served detections")
+
+
+def libjpeg_probe():
+    """What the machine has of libjpeg: ``ldconfig -p | grep -i jpeg`` and
+    the ``jpeglib.h`` headers on the compiler's usual paths."""
+    ldconfig = subprocess.run("ldconfig -p | grep -i jpeg", shell=True, capture_output=True,
+                              text=True, timeout=60).stdout.strip()
+    headers = [p for p in ("/usr/include/jpeglib.h", "/usr/local/include/jpeglib.h",
+                           "/usr/include/x86_64-linux-gnu/jpeglib.h") if os.path.exists(p)]
+    return ldconfig, headers
+
+
+def phase_ingest(np, torch, card, preset, device="cuda"):
+    """The committed Waymo-format TFRecord (``waymo_2d_tracking_tpu_torch/
+    fixtures/ingest_fixture.tfrecord``: 16 FRONT frames at 1280x1920) through
+    the port's ingest. The TFRecord half (native index, metadata, extracted
+    JPEG bytes against the pure-Python walk and the committed SHA-256) runs
+    wherever ``g++`` does. The JPEG half needs libjpeg: where the shim builds,
+    the decoded frames' SHA-256 at denom 1 and 2 are printed beside the
+    committed ones (``tools/make_ingest_fixture.py``'s decode), ``run_segment``
+    on the JPEG bytes at the preset's denom must give exactly the records of
+    the same decoded frames passed as arrays (at 1/denom of their
+    coordinates), and an ``OnlineTracker`` fed the bytes exactly what it
+    gives on the decoded frames. Where libjpeg is absent the decoder must raise, not fall back.
+    Returns whether the JPEG half ran."""
+    import hashlib
+
+    from waymo_2d_tracking_tpu_torch.config import Config, _update
+    from waymo_2d_tracking_tpu_torch.data import jpeg, waymo
+    from waymo_2d_tracking_tpu_torch.pipeline.online import OnlineTracker
+    from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentFrames, SegmentPipeline
+    from waymo_2d_tracking_tpu_torch.weights import FIXTURES_DIR
+
+    sha = lambda b: hashlib.sha256(b).hexdigest()   # noqa: E731
+    fixture = json.load(open(os.path.join(FIXTURES_DIR, "ingest_fixture.json")))
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), fixture["tfrecord"])
+    t0 = time.perf_counter()
+    (seg,) = [s for s in waymo.iter_segments(os.path.dirname(path))
+              if s.context_name == fixture["context_name"]]
+    blobs = seg.jpeg_frames[0:seg.num_frames]
+    walked = [waymo.parse_frame(r, want_labels=False)["images"][fixture["camera"]]
+              for r in waymo.read_tfrecord(path, verify_crc=True)]
+    if blobs != walked or [sha(b) for b in blobs] != fixture["jpeg_sha256"] \
+            or list(seg.timestamps) != fixture["timestamps"]:
+        raise AssertionError("ingest: the native TFRecord scanner's bytes differ from the "
+                             "Python walk or the committed hashes")
+    log(f"[2b] ingest: {os.path.basename(path)} ({fixture['bytes']} bytes) indexed, its "
+        f"metadata and {len(blobs)} FRONT JPEGs extracted by the native scanner in "
+        f"{time.perf_counter() - t0:.3f} s, equal to the Python walk and the committed SHA-256")
+    ldconfig, headers = libjpeg_probe()
+    log(f"[2b] libjpeg probe: ldconfig -p | grep -i jpeg -> {json.dumps(ldconfig.splitlines())}; "
+        f"jpeglib.h {headers or 'absent'}")
+    try:
+        jpeg.BatchJpegDecoder(8, 8).close()
+    except RuntimeError as e:
+        log(f"[2b] the JPEG decoder raises, as it must without libjpeg: "
+            f"{str(e).splitlines()[0]}; the JPEG half of ingest did not run here")
+        if headers:
+            raise AssertionError("jpeglib.h is present but the decoder shim did not build")
+        return False
+    with open("/proc/self/maps") as f:
+        loaded = sorted({ln.split()[-1] for ln in f if "libjpeg" in ln})
+    for denom in ("1", "2"):
+        block = next(seg.chunk_iter(seg.num_frames, scale_denom=int(denom)))
+        got = [sha(f.tobytes()) for f in block]
+        same = sum(a == b for a, b in zip(got, fixture["decoded_sha256"][denom]))
+        log(f"[2b] decoded at denom {denom} by {loaded}: {same} of {len(got)} frames' SHA-256 "
+            f"equal the committed decode by {fixture['decoded_by']}; first {got[0][:16]}")
+
+    cfg = _update(Config(), preset)
+    sd = cfg.pipeline.decode_scale_denom
+    cfg1 = _update(cfg, {"pipeline": {"decode_scale_denom": 1}})
+    def scaled(recs, f):
+        return [(r.timestamp_micros, r.object_id, r.object_type, r.score,
+                 r.center_x * f, r.center_y * f, r.length * f, r.width * f) for r in recs]
+
+    rec_jpeg, _ = SegmentPipeline(cfg, device=device, seed=0).run_segment(seg)
+    decoded = next(seg.chunk_iter(seg.num_frames, scale_denom=sd))
+    rec_arr, _ = SegmentPipeline(cfg1, device=device, seed=0).run_segment(
+        SegmentFrames(seg.context_name, seg.camera_name, seg.timestamps, decoded))
+    if not rec_jpeg or scaled(rec_jpeg, 1.0) != scaled(rec_arr, float(sd)):
+        raise AssertionError("ingest: run_segment on the JPEG bytes differs from the "
+                             "decoded frames")
+    online = []
+    for frames in (blobs, decoded):
+        sess = OnlineTracker(cfg, device=device, seed=0)
+        online.append([r for t, f in enumerate(frames) for r in sess.step(f, t)])
+        sess.close()
+    if scaled(online[0], 1.0) != scaled(online[1], float(sd)):
+        raise AssertionError("ingest: the online session on JPEG bytes differs from the "
+                             "decoded frames")
+    log(f"[2b] ingest at decode_scale_denom {sd} ({card}): run_segment on the JPEG bytes gives "
+        f"exactly the {len(rec_jpeg)} records of the decoded frames as arrays, the online "
+        f"session on the bytes exactly its {len(online[1])} records on the decoded frames")
+    return True
+
+
+def int8_conv_split(np, torch, pipe, frames, card):
+    """Every quantized conv of one headline_int8 chunk, at the shape the
+    chunk gives it, timed alone with CUDA events (median of 3) and summed: the
+    int8 GEMM (``torch._int_mm`` at the padded (M, K, N)), the whole int8 conv
+    (quantize, im2col, GEMM, dequantize) and the bf16 cuDNN conv of the float
+    preset that it replaces; the GEMMs' bound at 1979 dense int8 TOP/s and
+    3.35 TB/s (A and B read once, the int32 result written once)."""
+    import torch.nn.functional as F
+
+    from waymo_2d_tracking_tpu_torch.models import quant
+
+    runner = pipe.detector
+    sd = pipe.cfg.pipeline.decode_scale_denom
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, tuple(args[0].shape), args[0].dtype)))
+        for m in quant.quant_convs(runner.module)]
+    images, _ = pipe.preprocess(frames, frames.shape[1:3])
+    runner.forward(images)
+    for h in hooks:
+        h.remove()
+    del images
+    tot = {"gemm_ms": 0.0, "int8_conv_ms": 0.0, "bf16_conv_ms": 0.0, "bound_ms": 0.0}
+    by = {"bytes": 0, "operations": 0}
+    for mod, shape, dtype in seen:
+        x = torch.randn(shape, device="cuda", dtype=dtype).contiguous(
+            memory_format=torch.channels_last)
+        n, c, h, w = shape
+        (kh, kw), (sh, sw), (ph, pw) = mod.kernel_size, mod.stride, mod.padding
+        ho, wo = (h + 2 * ph - kh) // sh + 1, (w + 2 * pw - kw) // sw + 1
+        mp, kp, np_ = quant.gemm_pads(n * ho * wo, kh * kw * c, mod.out_channels)
+        a = torch.randint(-127, 128, (mp, kp), dtype=torch.int8, device="cuda")
+        b = torch.randint(-127, 128, (np_, kp), dtype=torch.int8, device="cuda")
+        tot["gemm_ms"] += cuda_time_ms(lambda: torch._int_mm(a, b.t()), reps=3)
+        with torch.no_grad():
+            tot["int8_conv_ms"] += cuda_time_ms(lambda: mod(x), reps=3)
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                tot["bf16_conv_ms"] += cuda_time_ms(
+                    lambda: F.conv2d(x, mod.weight, mod.bias, mod.stride, mod.padding), reps=3)
+        t_bytes = (mp * kp + kp * np_ + 4 * mp * np_) / PEAK_BYTES_PER_S * 1e3
+        t_ops = 2 * mp * kp * np_ / PEAK_INT8_OPS_PER_S * 1e3
+        tot["bound_ms"] += max(t_bytes, t_ops)
+        by["bytes" if t_bytes >= t_ops else "operations"] += 1
+        del x, a, b
+    torch.cuda.empty_cache()
+    log(f"[3] headline_int8: {len(seen)} quantized convs in a {frames.shape[0]}-frame chunk "
+        f"(denom {sd}), each timed alone at its chunk shape and summed ({card}): "
+        f"{json.dumps({k: round(v, 4) for k, v in tot.items()})}; GEMMs bound by "
+        f"{json.dumps(by)} (convs)")
+    return tot
 
 
 # ----------------------------------------------------------------- phase 3
@@ -1098,8 +1323,9 @@ def phase_main_path(np, torch, counters, card, name, preset, frames, chunks, run
     and read just after (replays of the captured tracker step count their
     launches); the chunk split with the graph held to the eager loop; output
     checks. ``denom`` overrides the preset's ``decode_scale_denom``; None
-    keeps the preset's own. Returns the launch counts of the first run and
-    that run's records."""
+    keeps the preset's own. Returns the launch counts of the first run
+    (``launches``), that run's records, the chunk split and, on an int8
+    path, its quantized convs' times (``int8_convs``, else None)."""
     from waymo_2d_tracking_tpu_torch.config import Config, _update
     from waymo_2d_tracking_tpu_torch.pipeline.run import (
         SegmentFrames, SegmentPipeline, tta_active,
@@ -1138,8 +1364,13 @@ def phase_main_path(np, torch, counters, card, name, preset, frames, chunks, run
     want = {"nms_mask": chunks, "auction": chunks * chunk * stages_of(cfg)}
     if any(lr[k] != v for lr in launch_runs for k, v in want.items()):
         raise AssertionError(f"{name}: expected {want} launches a run, got {launch_runs}")
+    check_int8_count(name, cfg, launch_runs[0])
+    if cfg.detector.quant == "int8":
+        log(f"[3] {name}: int8 GEMMs per chunk {launch_runs[0]['int8_gemm'] / chunks:.1f}")
 
     split, split_runs, dets, outs = chunk_split(torch, pipe, frames, chunk, tta)
+    int8_convs = (int8_conv_split(np, torch, pipe, frames[:chunk], card)
+                  if cfg.detector.quant == "int8" else None)
     views = (2 if cfg.pipeline.tta_flip else 1) * len(cfg.pipeline.tta_scales)
     log(f"[3] {name}: {chunk}-frame chunk split, median of 3, the chunk on the card at source "
         f"size ({card}" + (f"; {views} views, the forward stage holds every view's forward and "
@@ -1181,7 +1412,15 @@ def phase_main_path(np, torch, counters, card, name, preset, frames, chunks, run
         f"max score {d.scores.max():.3f} (random weights)")
     del pipe
     torch.cuda.empty_cache()
-    return launch_runs[0], first_records
+    return {"launches": launch_runs[0], "records": first_records, "split": split,
+            "int8_convs": int8_convs}
+
+
+def check_int8_count(name, cfg, counts):
+    """int8 GEMMs ran on a path exactly when its detector is quantized."""
+    if (counts["int8_gemm"] > 0) != (cfg.detector.quant == "int8"):
+        raise AssertionError(f"{name}: {counts['int8_gemm']} int8 GEMMs with "
+                             f"detector.quant={cfg.detector.quant!r}")
 
 
 def check_denom2(np, torch, card, frames, up, rec1, rec2):
@@ -1226,20 +1465,35 @@ def phase_headlines(np, torch, counters, card):
         f"{time.perf_counter() - t0:.1f} s ({card})")
     tta = {**HEADLINE, "pipeline": {**HEADLINE["pipeline"], "tta_flip": True,
                                     "tta_scales": [1.0, 0.75]}}
-    paths = {}
-    paths["headline"], rec1 = phase_main_path(np, torch, counters, card, "headline", HEADLINE,
-                                              frames, chunks=2, runs=3, trace=True)
+    results = {"headline": phase_main_path(np, torch, counters, card, "headline", HEADLINE,
+                                           frames, chunks=2, runs=3, trace=True)}
     # the preset as shipped: decode_scale_denom 2 on source-size frames
     up = frames.repeat(2, axis=1).repeat(2, axis=2)
-    paths["headline_denom2"], rec2 = phase_main_path(np, torch, counters, card,
-                                                     "headline_denom2", HEADLINE, up, chunks=2,
-                                                     runs=3, denom=None)
-    check_denom2(np, torch, card, frames, up, rec1, rec2)
+    results["headline_denom2"] = phase_main_path(np, torch, counters, card, "headline_denom2",
+                                                 HEADLINE, up, chunks=2, runs=3, denom=None)
+    check_denom2(np, torch, card, frames, up, results["headline"]["records"],
+                 results["headline_denom2"]["records"])
+    # the repo's committed serving point: headline_int8 as shipped, denom 2
+    results["headline_int8"] = phase_main_path(np, torch, counters, card, "headline_int8",
+                                               HEADLINE_INT8, up, chunks=2, runs=3, denom=None)
     del up
-    paths["headline_centernet"] = phase_main_path(np, torch, counters, card, "headline_centernet",
-                                                  HEADLINE_CENTERNET, frames, chunks=2, runs=3)[0]
-    paths["headline_tta"] = phase_main_path(np, torch, counters, card, "headline_tta", tta,
-                                            frames, chunks=1, runs=2)[0]
+    bf16, int8 = results["headline_denom2"], results["headline_int8"]
+    fwd = {k: r["split"]["detector_forward_ms"] for k, r in (("bf16", bf16), ("int8", int8))}
+    convs = int8["int8_convs"]
+    log(f"[3] headline_int8 against headline_denom2 on the same chunks ({card}): detector "
+        f"forward {fwd['int8']:.3f} ms int8 against {fwd['bf16']:.3f} ms bf16 a chunk; the "
+        f"quantized convs alone {convs['int8_conv_ms']:.3f} ms int8 (of which the GEMMs "
+        f"{convs['gemm_ms']:.3f}, bound {convs['bound_ms']:.3f}) against "
+        f"{convs['bf16_conv_ms']:.3f} ms bf16 cuDNN; {len(int8['records'])} records (bf16 "
+        f"{len(bf16['records'])})")
+    if not int8["records"]:
+        raise AssertionError("headline_int8: no records")
+    results["headline_centernet"] = phase_main_path(
+        np, torch, counters, card, "headline_centernet", HEADLINE_CENTERNET, frames, chunks=2,
+        runs=3)
+    results["headline_tta"] = phase_main_path(np, torch, counters, card, "headline_tta", tta,
+                                              frames, chunks=1, runs=2)
+    paths = {name: r["launches"] for name, r in results.items()}
     return paths, frames
 
 
@@ -1324,6 +1578,7 @@ def phase_config4(np, torch, counters, card, frames):
         f"launches per run {json.dumps(launch_runs)}, per chunk {json.dumps(per_chunk)}; last "
         f"NMS launch (B, N) {shapes[0]}, last auction launch (P, n) {shapes[1]}")
     want = {"nms_mask": 1, "auction": chunk * stages}
+    check_int8_count("config4_multicam", cfg, launch_runs[0])
     if any(per_chunk[k] != v for k, v in want.items()) or shapes[0][0] != chunk * cams \
             or shapes[1] != (cams, 128):
         raise AssertionError(f"config4_multicam: expected per chunk {want}, NMS at B={chunk * cams} "
@@ -1399,6 +1654,7 @@ def phase_online(np, torch, counters, card, name, session, frames, ticks, per_ti
         f"last NMS launch (B, N) {shapes[0]}, last auction launch (P, n) {shapes[1]}")
     if any(counts[k] != v * ticks for k, v in per_tick.items()):
         raise AssertionError(f"{name}: expected {per_tick} launches per step, got {counts}")
+    check_int8_count(name, session.cfg, counts)
     return counts
 
 
@@ -1443,6 +1699,7 @@ def main() -> int:
     sys.path.insert(0, here)
     import numpy as np
 
+    from waymo_2d_tracking_tpu_torch.models import quant
     from waymo_2d_tracking_tpu_torch.ops import _cuda, assign, nms, roi_align, topk
 
     smi = subprocess.run(
@@ -1463,7 +1720,8 @@ def main() -> int:
                 log(f"[0] ptxas {kname}: {line.strip()}")
 
     counters = {"nms_mask": nms.nms_mask_cuda, "auction": assign.auction_kernel_cuda,
-                "topk_threshold": topk.topk_threshold_cuda, "roi_align": roi_align.roi_align_cuda}
+                "topk_threshold": topk.topk_threshold_cuda, "roi_align": roi_align.roi_align_cuda,
+                "int8_gemm": quant.int8_gemm}
     kern = {k: {**v, "library_ms": None} for k, v in phase_kernels(torch, nms, assign, smi).items()}
     kern["topk_threshold"] = phase_topk(torch, topk, smi)
     kern["roi_align"] = phase_roi_align(torch, roi_align, smi)
@@ -1471,6 +1729,7 @@ def main() -> int:
         f"{json.dumps({k: fn.launches for k, fn in counters.items()})}")
     phase_downscale(np, torch, smi)
     phase_fixtures(np, torch, nms, assign)
+    phase_ingest(np, torch, smi, HEADLINE_INT8)
     paths, headline_frames = phase_headlines(np, torch, counters, smi)
     paths.update(phase_new_paths(np, torch, counters, smi, headline_frames))
     # neither the top-k threshold nor the RoIAlign kernel is on a main path

@@ -54,7 +54,9 @@ def test_port_imports_no_jax_in_a_fresh_process():
     assert out.returncode == 0, out.stderr
     assert len(mods) >= 30
     for new in ("pipeline.multicam", "pipeline.online", "pipeline.offline", "pipeline.link",
-                "pipeline.manifest", "io_out.postprocess", "data.prefetch", "tracker.graph"):
+                "pipeline.manifest", "io_out.postprocess", "data.prefetch", "tracker.graph",
+                "models.quant", "data._native", "data.jpeg", "data.tfrecord_native",
+                "data.waymo", "utils.protolite"):
         assert f"waymo_2d_tracking_tpu_torch.{new}" in mods, new
 
 
@@ -169,26 +171,28 @@ def test_entry_points_need_a_card_unless_cpu():
 
 
 def test_later_slices_raise_not_implemented():
-    """int8, JPEG frames and the mesh-sharded gallery scoring are later
-    slices and raise; the CenterNet head family, TTA and output gap
-    interpolation are ported and build on the CPU."""
+    """The mesh-sharded gallery scoring is a later slice and raises; int8,
+    JPEG frames (malformed bytes raise a ValueError, not NotImplementedError),
+    the CenterNet head family, TTA and output gap interpolation are ported and
+    build on the CPU."""
     from waymo_2d_tracking_tpu_torch.config import Config
     from waymo_2d_tracking_tpu_torch.models.centernet import CenterNetHeads
     from waymo_2d_tracking_tpu_torch.models.detector import Detector
+    from waymo_2d_tracking_tpu_torch.models.quant import QuantConv2d
     from waymo_2d_tracking_tpu_torch.pipeline.link import best_cross_camera_matches
     from waymo_2d_tracking_tpu_torch.pipeline.online import OnlineTracker
     from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentPipeline, tta_active
 
     base = Config()
-    with pytest.raises(NotImplementedError, match="int8"):
-        Detector(port_config._update(base, {"detector": {"quant": "int8"}}).detector)
     with pytest.raises(NotImplementedError, match="distributed"):
         best_cross_camera_matches({}, mesh=object())
     small = {"backbone": "resnet18slim", "image_size": [64, 64], "fpn_channels": 32,
              "fpn_levels": [3, 4, 5], "head_depth": 1, "embed_dim": 0}
     interp = port_config._update(base, {"detector": small, "pipeline": {"interp_max_gap": 2}})
     SegmentPipeline(interp, device="cpu")
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    int8 = Detector(port_config._update(base, {"detector": {**small, "quant": "int8"}}).detector)
+    assert isinstance(int8.backbone.stem_conv, QuantConv2d)
+    with pytest.raises(ValueError, match="JPEG"):
         OnlineTracker(interp, device="cpu").step(b"\xff\xd8\xff", 0)
     centernet = {**small, "head_family": "centernet"}
     assert isinstance(Detector(port_config._update(base, {"detector": centernet}).detector)
@@ -198,6 +202,17 @@ def test_later_slices_raise_not_implemented():
         cfg = port_config._update(base, {"detector": small, **overrides})
         assert tta_active(cfg.pipeline)
         SegmentPipeline(cfg, device="cpu")
+
+
+def test_headline_int8_dict_equals_yaml():
+    """``chip_smoke.HEADLINE_INT8`` is ``configs/headline_int8.yaml`` loaded
+    into the port's Config, field for field."""
+    smoke = _chip_smoke()
+    got = port_config._update(port_config.Config(), smoke.HEADLINE_INT8)
+    want = jax_config.load_config(os.path.join(ROOT, "configs", "headline_int8.yaml"))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.detector.quant == "int8" and got.detector.quant_scope == "trunk"
+    assert got.pipeline.decode_scale_denom == 2
 
 
 def test_headline_centernet_dict_equals_yaml():

@@ -212,7 +212,7 @@ def test_online_tracker_matches_jax(parity):
         assert sess.last_latency_ms() > 0 and sess.frames_seen == T
         sess.reset(clear_latency=True)
         assert sess.latency_stats() == {"count": 0} and int(sess.state.next_id) == 0
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    with pytest.raises(ValueError, match="JPEG"):     # bytes, but not a whole JPEG
         sess.step(b"\xff\xd8", 0)
 
 

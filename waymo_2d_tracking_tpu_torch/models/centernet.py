@@ -29,10 +29,11 @@ class CenterNetHeads(nn.Module):
     (N,H,W,2))}, all NHWC."""
 
     def __init__(self, in_ch: int, num_classes: int = 3, depth: int = 2,
-                 channels: int = 256, level: int = 3):
+                 channels: int = 256, level: int = 3, quant: str = "off",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.level = level
-        self.tower = HeadTower(in_ch, depth, channels)
+        self.tower = HeadTower(in_ch, depth, channels, quant, dtype)   # heat, wh, offset float
         self.heat = nn.Conv2d(channels, num_classes, 3, padding=1)
         self.wh = nn.Conv2d(channels, 2, 3, padding=1)
         self.offset = nn.Conv2d(channels, 2, 3, padding=1)

@@ -1,7 +1,8 @@
 """Full detector (counterpart of ``models/detector.py``): ResNet + FPN + FCOS
 or CenterNet heads + ReID, with batched post-processing -- top-k candidates,
 class-aware NMS (the CUDA kernel on the card) and RoIAlign + ReID embedding --
-emitting tracker-ready ``Detections``.
+emitting tracker-ready ``Detections``. ``quant='int8'`` serves a w8a8 trunk
+(``models/quant.py``) after a calibration pass.
 
 Precision rule (``precision_ctx``): ``dtype='float32'`` configs run true f32,
 with TF32 off for both cuDNN convolutions and CUDA matmuls (cuDNN allows TF32
@@ -28,6 +29,7 @@ from waymo_2d_tracking_tpu_torch.models.centernet import (
 )
 from waymo_2d_tracking_tpu_torch.models.fpn import FPN
 from waymo_2d_tracking_tpu_torch.models.heads import FCOSHeads, decode_level
+from waymo_2d_tracking_tpu_torch.models.quant import is_calibrated, quant_convs, quant_mode
 from waymo_2d_tracking_tpu_torch.models.reid import ReIDHead
 from waymo_2d_tracking_tpu_torch.ops.nms import nms_batched, topk_stable
 from waymo_2d_tracking_tpu_torch.ops.roi_align import (
@@ -68,39 +70,41 @@ def precision_ctx(cfg: DetectorConfig, device: torch.device):
     return torch.autocast(device_type=device.type, dtype=torch.bfloat16)
 
 
-def _check_supported(cfg: DetectorConfig) -> None:
-    if cfg.quant != "off":
-        raise NotImplementedError(
-            "detector.quant='int8' (models/quant.py) is not ported yet; it "
-            "is a later slice of the port")
-    if cfg.backbone not in _BACKBONES:
-        raise ValueError(f"unknown backbone {cfg.backbone}")
-
-
 class Detector(nn.Module):
     """Raw forward: images (N, H, W, 3) -> (per-level head outputs NHWC,
-    pyramid features NHWC)."""
+    pyramid features NHWC).
+
+    ``cfg.quant='int8'`` builds the backbone and FPN convs as ``QuantConv2d``
+    (``models/quant.py``), and the head towers and ReID convs too under
+    ``quant_scope='all'``; the predictor convs stay float, as in the JAX
+    package."""
 
     def __init__(self, cfg: DetectorConfig):
         super().__init__()
-        _check_supported(cfg)
+        if cfg.backbone not in _BACKBONES:
+            raise ValueError(f"unknown backbone {cfg.backbone}")
         self.cfg = cfg
-        self.backbone = _BACKBONES[cfg.backbone](stem=cfg.stem)
-        self.fpn = FPN(self.backbone.out_channels, cfg.fpn_channels, cfg.fpn_levels)
+        dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+        head_quant = cfg.quant if cfg.quant_scope == "all" else "off"
+        self.backbone = _BACKBONES[cfg.backbone](stem=cfg.stem, quant=cfg.quant, dtype=dtype)
+        self.fpn = FPN(self.backbone.out_channels, cfg.fpn_channels, cfg.fpn_levels,
+                       quant=cfg.quant, dtype=dtype)
         head_channels = cfg.head_channels or cfg.fpn_channels
         if cfg.head_family == "centernet":
             self.heads = CenterNetHeads(
                 cfg.fpn_channels, num_classes=cfg.num_classes, depth=cfg.head_depth,
-                channels=head_channels, level=cfg.centernet_level,
+                channels=head_channels, level=cfg.centernet_level, quant=head_quant,
+                dtype=dtype,
             )
         else:
             self.heads = FCOSHeads(
                 cfg.fpn_channels, num_classes=cfg.num_classes, depth=cfg.head_depth,
-                channels=head_channels, levels=cfg.fpn_levels,
+                channels=head_channels, levels=cfg.fpn_levels, quant=head_quant, dtype=dtype,
             )
         if cfg.embed_dim > 0:
             self.reid = ReIDHead(cfg.fpn_channels, embed_dim=cfg.embed_dim,
-                                 channels=cfg.reid_channels or cfg.fpn_channels)
+                                 channels=cfg.reid_channels or cfg.fpn_channels,
+                                 quant=head_quant, dtype=dtype)
 
     def forward(self, images: torch.Tensor):
         c_feats = self.backbone(images)
@@ -210,8 +214,14 @@ class DetectorRunner:
     """Holds the detector on ``device`` and produces tracker-ready Detections.
 
     ``state_dict``: the port's weights (``weights.from_flax_numpy`` converts
-    the JAX package's variables); without it the weights are random, drawn
-    from ``torch.Generator().manual_seed(seed)``.
+    the JAX package's variables, with a calibrated checkpoint's activation
+    scales); without it the weights are random, drawn from
+    ``torch.Generator().manual_seed(seed)``.
+
+    Under ``quant='int8'`` the activation scales come from ``calibrate`` (the
+    drivers call it on their first real frames) or from the checkpoint, and
+    every forward first passes ``check_calibrated``, which raises on an
+    uncalibrated detector.
     """
 
     def __init__(self, cfg: Optional[DetectorConfig] = None,
@@ -223,15 +233,81 @@ class DetectorRunner:
         if state_dict is None:
             self.module.init_weights(torch.Generator().manual_seed(seed))
         else:
+            if self.cfg.quant == "off":   # a calibrated checkpoint serves float too
+                state_dict = {k: v for k, v in state_dict.items()
+                              if not k.endswith(".act_absmax")}
             self.module.load_state_dict(state_dict)
         self.module.to(self.device).eval()
+        self._calib_ok_key = None
+        self._allow_uncalibrated = False
 
     def precision(self):
         return precision_ctx(self.cfg, self.device)
 
+    def _absmax_key(self):
+        """Identity and in-place version of every ``act_absmax`` buffer:
+        host-side, no device read, and it changes whenever a buffer is
+        written (calibration, ``load_state_dict``, ``copy_``)."""
+        return tuple((t.data_ptr(), t._version)
+                     for t in (m.act_absmax for m in quant_convs(self.module)))
+
+    def check_calibrated(self) -> None:
+        """Refuse to serve uncalibrated int8: a zero absmax falls back to a
+        scale of 1.0 inside ``QuantConv2d``, finite but wrong outputs. Reads
+        the buffers on the host once per calibration state (the JAX package
+        memoizes by a weakref to its 'quant' leaf)."""
+        if self.cfg.quant == "off" or self._allow_uncalibrated:
+            return
+        key = self._absmax_key()
+        if key == self._calib_ok_key:
+            return
+        if not is_calibrated(self.module):
+            raise RuntimeError(
+                "detector.quant='int8' but the detector carries no calibrated "
+                "activation scales (act_absmax == 0). Run "
+                "DetectorRunner.calibrate(representative_images) first -- the "
+                "pipeline drivers do this on their first real frames "
+                "(SegmentPipeline, MultiCamPipeline, OnlineTracker, "
+                "OnlineMultiCamTracker) -- or load a calibrated checkpoint.")
+        self._calib_ok_key = key
+
+    @contextlib.contextmanager
+    def uncalibrated_ok(self):
+        """Let a warm-up pass, whose outputs are thrown away, run the int8
+        forward before calibration (with the 1.0 scale fallback), as the JAX
+        package's warm-up does."""
+        self._allow_uncalibrated = True
+        try:
+            yield
+        finally:
+            self._allow_uncalibrated = False
+
+    @torch.no_grad()
+    def calibrate(self, images: torch.Tensor) -> None:
+        """One PTQ calibration pass (``quant='int8'``): the float forward on
+        representative images, recording each quantized conv's input absmax
+        as a running maximum (call again to widen it over more batches).
+        Under ``quant_scope='all'`` the ReID tower is calibrated on the pooled
+        features of the batch's detections, invalid slots zeroed unless no
+        slot of the batch is valid (then an all-zero batch would read as
+        uncalibrated)."""
+        if self.cfg.quant == "off":
+            return
+        with quant_mode(self.module, "calib"), self.precision():
+            head_out, p_feats = self.module(images)
+            if self.cfg.embed_dim > 0 and self.cfg.quant_scope == "all":
+                boxes, _, _, valid = select_detections_batched(
+                    *gather_candidates_batched(head_out, self.cfg), self.cfg)
+                pooled = _pool_reid_features(p_feats, boxes, self.cfg)
+                masked = pooled * valid[..., None, None, None].to(pooled.dtype)
+                pooled = torch.where(valid.any(), masked, pooled)
+                n, d = boxes.shape[:2]
+                self.module.embed(pooled.reshape((n * d,) + pooled.shape[2:]))
+
     @torch.no_grad()
     def forward(self, images: torch.Tensor):
         """Raw head outputs and pyramid features for (N, H, W, 3) images."""
+        self.check_calibrated()
         with self.precision():
             return self.module(images)
 

@@ -10,6 +10,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from waymo_2d_tracking_tpu_torch.models.quant import make_conv
+
 GN_EPS = 1e-6  # flax nn.GroupNorm's epsilon (torch's default is 1e-5)
 
 
@@ -25,12 +27,16 @@ class GroupNorm(nn.GroupNorm):
 
 
 class HeadTower(nn.Module):
-    def __init__(self, in_ch: int, depth: int = 4, channels: int = 256):
+    """``depth`` x (3x3 conv, GroupNorm 32, relu); the convs from
+    ``make_conv`` (quantized only under ``quant_scope='all'``)."""
+
+    def __init__(self, in_ch: int, depth: int = 4, channels: int = 256, quant: str = "off",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.depth = depth
         for i in range(depth):
-            self.add_module(f"conv{i}", nn.Conv2d(in_ch if i == 0 else channels,
-                                                  channels, 3, padding=1))
+            self.add_module(f"conv{i}", make_conv(quant, in_ch if i == 0 else channels,
+                                                  channels, 3, padding=1, dtype=dtype))
             self.add_module(f"gn{i}", GroupNorm(32, channels, eps=GN_EPS))
 
     def forward(self, x):
@@ -48,11 +54,13 @@ class FCOSHeads(nn.Module):
     centerness (N,H,W,1)), all NHWC."""
 
     def __init__(self, in_ch: int, num_classes: int = 3, depth: int = 4,
-                 channels: int = 256, levels: Sequence[int] = (3, 4, 5, 6, 7)):
+                 channels: int = 256, levels: Sequence[int] = (3, 4, 5, 6, 7),
+                 quant: str = "off", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.levels = tuple(levels)
-        self.cls_tower = HeadTower(in_ch, depth, channels)
-        self.box_tower = HeadTower(in_ch, depth, channels)
+        self.cls_tower = HeadTower(in_ch, depth, channels, quant, dtype)
+        self.box_tower = HeadTower(in_ch, depth, channels, quant, dtype)
+        # the predictor convs stay float in every mode, as in the JAX heads
         self.cls_logits = nn.Conv2d(channels, num_classes, 3, padding=1)
         self.box_ltrb = nn.Conv2d(channels, 4, 3, padding=1)
         self.centerness = nn.Conv2d(channels, 1, 3, padding=1)

@@ -2,7 +2,8 @@
 
 (R, P, P, C) RoIAligned features -> conv/GN/relu -> conv/relu -> flatten in
 NHWC order (as the JAX head flattens (P, P, C), so the Dense weight maps
-unchanged) -> Dense -> L2-normalized (R, E) float32 embeddings.
+unchanged) -> Dense -> L2-normalized (R, E) float32 embeddings. The two convs
+come from ``make_conv`` (quantized only under ``quant_scope='all'``).
 """
 from __future__ import annotations
 
@@ -11,15 +12,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from waymo_2d_tracking_tpu_torch.models.heads import GN_EPS
+from waymo_2d_tracking_tpu_torch.models.quant import make_conv
 
 
 class ReIDHead(nn.Module):
     def __init__(self, in_ch: int, embed_dim: int = 128, channels: int = 256,
-                 pool: int = 7):
+                 pool: int = 7, quant: str = "off", dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv0 = nn.Conv2d(in_ch, channels, 3, padding=1)
+        self.conv0 = make_conv(quant, in_ch, channels, 3, padding=1, dtype=dtype)
         self.gn0 = nn.GroupNorm(32, channels, eps=GN_EPS)
-        self.conv1 = nn.Conv2d(channels, channels, 3, padding=1)
+        self.conv1 = make_conv(quant, channels, channels, 3, padding=1, dtype=dtype)
         self.proj = nn.Linear(pool * pool * channels, embed_dim)
 
     def forward(self, pooled: torch.Tensor) -> torch.Tensor:

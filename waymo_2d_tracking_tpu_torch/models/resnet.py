@@ -7,6 +7,10 @@ to one. Submodule names follow the flax names (``stem_conv``, ``stem_bn``,
 ``stage{s}_block{b}``, ``conv1``, ``bn1``, ``downsample_conv``...), which is
 what ``weights.from_flax_numpy`` relies on.
 
+Every conv comes from ``models/quant.py make_conv``: ``quant='off'`` is a
+plain ``nn.Conv2d``, ``'calib'`` / ``'int8'`` the w8a8 ``QuantConv2d``
+(``dtype``: the config's compute dtype).
+
 Returns the C2..C5 features {2: /4, 3: /8, 4: /16, 5: /32}, NCHW.
 """
 from __future__ import annotations
@@ -16,6 +20,8 @@ from typing import Dict, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from waymo_2d_tracking_tpu_torch.models.quant import make_conv
 
 
 def _bn(c: int) -> nn.BatchNorm2d:
@@ -27,17 +33,19 @@ class Bottleneck(nn.Module):
 
     expansion = 4
 
-    def __init__(self, in_ch: int, features: int, stride: int = 1):
+    def __init__(self, in_ch: int, features: int, stride: int = 1, quant: str = "off",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         out = features * 4
-        self.conv1 = nn.Conv2d(in_ch, features, 1, bias=False)
+        conv = lambda *a, **kw: make_conv(quant, *a, bias=False, dtype=dtype, **kw)  # noqa: E731
+        self.conv1 = conv(in_ch, features, 1)
         self.bn1 = _bn(features)
-        self.conv2 = nn.Conv2d(features, features, 3, stride, padding=1, bias=False)
+        self.conv2 = conv(features, features, 3, stride, padding=1)
         self.bn2 = _bn(features)
-        self.conv3 = nn.Conv2d(features, out, 1, bias=False)
+        self.conv3 = conv(features, out, 1)
         self.bn3 = _bn(out)
         if in_ch != out or stride != 1:
-            self.downsample_conv = nn.Conv2d(in_ch, out, 1, stride, bias=False)
+            self.downsample_conv = conv(in_ch, out, 1, stride)
             self.downsample_bn = _bn(out)
         else:
             self.downsample_conv = None
@@ -57,14 +65,16 @@ class BasicBlock(nn.Module):
 
     expansion = 1
 
-    def __init__(self, in_ch: int, features: int, stride: int = 1):
+    def __init__(self, in_ch: int, features: int, stride: int = 1, quant: str = "off",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1 = nn.Conv2d(in_ch, features, 3, stride, padding=1, bias=False)
+        conv = lambda *a, **kw: make_conv(quant, *a, bias=False, dtype=dtype, **kw)  # noqa: E731
+        self.conv1 = conv(in_ch, features, 3, stride, padding=1)
         self.bn1 = _bn(features)
-        self.conv2 = nn.Conv2d(features, features, 3, 1, padding=1, bias=False)
+        self.conv2 = conv(features, features, 3, 1, padding=1)
         self.bn2 = _bn(features)
         if in_ch != features or stride != 1:
-            self.downsample_conv = nn.Conv2d(in_ch, features, 1, stride, bias=False)
+            self.downsample_conv = conv(in_ch, features, 1, stride)
             self.downsample_bn = _bn(features)
         else:
             self.downsample_conv = None
@@ -95,13 +105,14 @@ class ResNet(nn.Module):
     """
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), width: int = 64,
-                 block: str = "bottleneck", stem: str = "conv7"):
+                 block: str = "bottleneck", stem: str = "conv7", quant: str = "off",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.stem = stem
         if stem == "s2d":
-            self.stem_conv = nn.Conv2d(12, width, 4, 1, bias=False)
+            self.stem_conv = make_conv(quant, 12, width, 4, 1, bias=False, dtype=dtype)
         else:
-            self.stem_conv = nn.Conv2d(3, width, 7, 2, padding=3, bias=False)
+            self.stem_conv = make_conv(quant, 3, width, 7, 2, padding=3, bias=False, dtype=dtype)
         self.stem_bn = _bn(width)
         block_cls = Bottleneck if block == "bottleneck" else BasicBlock
         self.stage_names = []
@@ -113,7 +124,7 @@ class ResNet(nn.Module):
             for b in range(num_blocks):
                 stride = 2 if (b == 0 and stage > 0) else 1
                 name = f"stage{stage + 1}_block{b}"
-                self.add_module(name, block_cls(in_ch, features, stride))
+                self.add_module(name, block_cls(in_ch, features, stride, quant, dtype))
                 in_ch = features * block_cls.expansion
                 names.append(name)
             self.stage_names.append(names)
@@ -135,22 +146,22 @@ class ResNet(nn.Module):
         return feats
 
 
-def ResNet18(stem: str = "conv7") -> ResNet:
-    return ResNet(stage_sizes=(2, 2, 2, 2), width=64, block="basic", stem=stem)
+def ResNet18(stem: str = "conv7", **kw) -> ResNet:
+    return ResNet(stage_sizes=(2, 2, 2, 2), width=64, block="basic", stem=stem, **kw)
 
 
-def ResNet34(stem: str = "conv7") -> ResNet:
-    return ResNet(stage_sizes=(3, 4, 6, 3), width=64, block="basic", stem=stem)
+def ResNet34(stem: str = "conv7", **kw) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), width=64, block="basic", stem=stem, **kw)
 
 
-def ResNet50(stem: str = "conv7") -> ResNet:
-    return ResNet(stage_sizes=(3, 4, 6, 3), width=64, stem=stem)
+def ResNet50(stem: str = "conv7", **kw) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 6, 3), width=64, stem=stem, **kw)
 
 
-def ResNet101(stem: str = "conv7") -> ResNet:
-    return ResNet(stage_sizes=(3, 4, 23, 3), width=64, stem=stem)
+def ResNet101(stem: str = "conv7", **kw) -> ResNet:
+    return ResNet(stage_sizes=(3, 4, 23, 3), width=64, stem=stem, **kw)
 
 
-def ResNet18Slim(stem: str = "conv7") -> ResNet:
+def ResNet18Slim(stem: str = "conv7", **kw) -> ResNet:
     """Small twin for tests (1-block bottleneck stages, width 16)."""
-    return ResNet(stage_sizes=(1, 1, 1, 1), width=16, stem=stem)
+    return ResNet(stage_sizes=(1, 1, 1, 1), width=16, stem=stem, **kw)

@@ -19,7 +19,10 @@ On the card the tracker steps replay a captured CUDA graph per frame
 (``tracker/graph.py``), one per (config, camera count, shapes). Under
 ``decode_scale_denom > 1`` the chunk is downscaled (``area_downscale``)
 where it is letterboxed: on the card after the copy, at source size. As in
-the JAX package, no prefetch thread feeds this driver.
+the JAX package, no prefetch thread feeds this driver. Cameras given as JPEG
+bytes are decoded on the host at the scaled size. Under
+``detector.quant='int8'`` the first real chunk's shared batch calibrates the
+activation scales.
 """
 from __future__ import annotations
 
@@ -35,7 +38,12 @@ from waymo_2d_tracking_tpu_torch.data.preprocess import area_downscale, letterbo
 from waymo_2d_tracking_tpu_torch.io_out import submission as subm
 from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
 from waymo_2d_tracking_tpu_torch.pipeline.link import write_gallery_sidecar
-from waymo_2d_tracking_tpu_torch.pipeline.run import RollingFetch, concat_host, dispatch_detect
+from waymo_2d_tracking_tpu_torch.pipeline.run import (
+    RollingFetch,
+    calibrate_params_from_frames,
+    concat_host,
+    dispatch_detect,
+)
 from waymo_2d_tracking_tpu_torch.tracker import init_multicam_state
 from waymo_2d_tracking_tpu_torch.tracker.graph import track_chunk
 from waymo_2d_tracking_tpu_torch.types import Detections, TrackerState
@@ -68,6 +76,17 @@ class MultiCamPipeline:
         self.detector = DetectorRunner(cfg.detector, state_dict, device=device, seed=seed)
         self.device = self.detector.device
         self._graphs: Dict = {}    # captured tracker steps (tracker/graph.py)
+        self._calibrated = False
+
+    def ensure_calibrated(self, frames_u8, src_hw) -> None:
+        """int8: calibrate on the first real chunk, (chunk, cams, H, W, 3) or
+        already flattened to the shared batch (chunk * cams, H, W, 3), at
+        ``src_hw``; once per pipeline."""
+        if self._calibrated or self.cfg.detector.quant == "off":
+            return
+        flat = frames_u8.reshape((-1,) + tuple(frames_u8.shape[-3:]))
+        calibrate_params_from_frames(self.detector, self.cfg, flat, src_hw)
+        self._calibrated = True
 
     def chunk_step(self, states: TrackerState, frames_u8: np.ndarray, src_hw):
         """(states, host (chunk, cams, H, W, 3) u8 at the size the chunk
@@ -80,6 +99,7 @@ class MultiCamPipeline:
         frames = torch.from_numpy(flat).to(self.device)
         if tuple(frames.shape[1:3]) != tuple(src_hw):
             frames = area_downscale(frames, self.cfg.pipeline.decode_scale_denom)
+        self.ensure_calibrated(frames, src_hw)
         images, scale = letterbox_batch(frames, src_hw, self.cfg.detector.image_size)
         dets = split_cameras(dispatch_detect(self.detector, self.cfg, images), t, c)
         states, outputs = track_chunk(states, dets, self.cfg.tracker, self._graphs)
@@ -101,23 +121,28 @@ class MultiCamPipeline:
         t_total = segments[0].num_frames
 
         states = init_multicam_state(cfg, self.num_cams, device=self.device)
-        # on the card full-size frames cross and chunk_step downscales there
-        host_sd = 1 if self.device.type == "cuda" else sd
-        iters = [s.chunk_iter(chunk, scale_denom=host_sd) for s in segments]
+        # on the card decoded full-size frames cross and chunk_step
+        # downscales there; JPEG bytes decode at the scaled size on the host
+        iters = [s.chunk_iter(chunk, scale_denom=1 if self.device.type == "cuda"
+                              and s.frames is not None else sd) for s in segments]
         fetcher = RollingFetch(depth=cfg.pipeline.prefetch_depth)
         src_hw = segments[0].scaled_hw(sd)
         scale = 1.0
-        for _start in range(0, t_total, chunk):
-            blocks = [next(it) for it in iters]
-            hws = {b.shape[1:3] for b in blocks}
-            assert len(hws) == 1, (
-                "multicam shared-backbone batch needs equal-resolution "
-                f"cameras, got {sorted(hws)}; run mixed-resolution cameras "
-                "as separate single-camera segments instead"
-            )
-            frames = np.stack(blocks, axis=1)   # (chunk, cams, H, W, 3)
-            states, outputs, scale = self.chunk_step(states, frames, src_hw)
-            fetcher.push(outputs)
+        try:
+            for _start in range(0, t_total, chunk):
+                blocks = [next(it) for it in iters]
+                hws = {b.shape[1:3] for b in blocks}
+                assert len(hws) == 1, (
+                    "multicam shared-backbone batch needs equal-resolution "
+                    f"cameras, got {sorted(hws)}; run mixed-resolution cameras "
+                    "as separate single-camera segments instead"
+                )
+                frames = np.stack(blocks, axis=1)   # (chunk, cams, H, W, 3)
+                states, outputs, scale = self.chunk_step(states, frames, src_hw)
+                fetcher.push(outputs)
+        finally:
+            for it in iters:      # closes a JPEG source's decoder
+                it.close()
         stacked = concat_host(fetcher.finish(), t_total)
         final_states = states.to_numpy()
         total_scale = float(scale) / sd

@@ -21,34 +21,77 @@ gives p50/p90/p99/max in ms over a sliding window. ``warmup`` runs one dummy
 step (the kernels build, the tracker step is captured and the allocator
 warms) and leaves the live state as it found it.
 
-Frames are decoded uint8 arrays; compressed ``bytes`` frames need JPEG
-ingest, a later slice of the port, and raise ``NotImplementedError``.
+Frames are decoded uint8 arrays or JPEG bytes; a session's ``_FrameDecoder``
+decodes bytes with the native batch decoder at ``decode_scale_denom``
+(libjpeg's scaled decode, sized from each batch's headers), and the records
+map back to source pixels through that scale too. Under
+``detector.quant='int8'`` a session calibrates on its first real frame or
+tick (not in ``warmup``, whose all-zero frame would record a zero absmax);
+the warm-up runs the int8 forward uncalibrated and throws its outputs away.
 """
 from __future__ import annotations
 
 import time
 from collections import deque
-from typing import Deque, Dict, List, Optional, Sequence, Tuple
+from typing import Deque, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from waymo_2d_tracking_tpu_torch.config import Config
+from waymo_2d_tracking_tpu_torch.data.jpeg import BatchJpegDecoder, jpeg_dims
 from waymo_2d_tracking_tpu_torch.data.preprocess import letterbox_batch
 from waymo_2d_tracking_tpu_torch.io_out import submission as subm
 from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
-from waymo_2d_tracking_tpu_torch.pipeline.run import dispatch_detect
+from waymo_2d_tracking_tpu_torch.pipeline.run import calibrate_params_from_frames, dispatch_detect
 from waymo_2d_tracking_tpu_torch.tracker import init_multicam_state, init_state, track_step
 from waymo_2d_tracking_tpu_torch.tracker.graph import CapturedTracker
 from waymo_2d_tracking_tpu_torch.types import Detections, TrackerState, TrackOutputs
 
 
-def _decoded(frame) -> np.ndarray:
-    if isinstance(frame, (bytes, bytearray)):
-        raise NotImplementedError(
-            "compressed (bytes) frames need JPEG ingest (data/jpeg.py), a later "
-            "slice of the port; pass decoded (H, W, 3) uint8 arrays")
-    return np.asarray(frame)
+Frame = Union[np.ndarray, bytes]
+
+
+class _FrameDecoder:
+    """Session-held JPEG decoder honouring ``decode_scale_denom``, sized from
+    the compressed frames' headers (``jpeg_dims``) and re-probed every batch,
+    so a stream at another resolution re-sizes it. Mixed resolutions within
+    one rig batch raise (the shared detector batch needs equal cameras).
+    Decoded arrays pass through untouched, at denom 1."""
+
+    def __init__(self, scale_denom: int):
+        self.scale_denom = int(scale_denom)
+        self._decoder: Optional[BatchJpegDecoder] = None
+        self._full_hw: Optional[Tuple[int, int]] = None
+
+    def decode_batch(self, frames: Sequence[Frame]) -> Tuple[np.ndarray, int]:
+        """-> ((N, H, W, 3) uint8, the denom applied)."""
+        if all(isinstance(f, (bytes, bytearray)) for f in frames):
+            blobs = [bytes(f) for f in frames]
+            dims = {jpeg_dims(b) for b in blobs}
+            if len(dims) != 1:
+                raise ValueError(
+                    f"mixed-resolution rig batch: JPEG dims {sorted(dims)}; the shared "
+                    "detector batch needs equal-resolution cameras")
+            (hw,) = dims
+            if hw != self._full_hw:
+                self.close()
+                sd = self.scale_denom
+                self._decoder = BatchJpegDecoder(-(-hw[0] // sd), -(-hw[1] // sd),
+                                                 scale_denom=sd)
+                self._full_hw = hw
+            return self._decoder.decode(blobs), self.scale_denom
+        if any(isinstance(f, (bytes, bytearray)) for f in frames):
+            raise ValueError("a rig batch mixes JPEG bytes and decoded frames")
+        if len(frames) == 1:      # one camera: no stack copy
+            return np.asarray(frames[0])[None], 1
+        return np.stack([np.asarray(f) for f in frames]), 1
+
+    def close(self) -> None:
+        if self._decoder is not None:
+            self._decoder.close()
+            self._decoder = None
+        self._full_hw = None
 
 
 class _LatencyWindow:
@@ -95,7 +138,20 @@ class _Session:
         self.device = self.detector.device
         self._latency = _LatencyWindow(latency_window)
         self._graph: Optional[CapturedTracker] = None
+        self._frame_decoder = _FrameDecoder(cfg.pipeline.decode_scale_denom)
+        self._calibrated = False
         self.reset()
+
+    def close(self) -> None:
+        """Release the JPEG decoder's thread pool (idempotent)."""
+        self._frame_decoder.close()
+
+    def _ensure_calibrated(self, frames_u8: np.ndarray, src_hw) -> None:
+        """int8: calibrate on the first real frame or tick, once."""
+        if self._calibrated or self.cfg.detector.quant == "off":
+            return
+        calibrate_params_from_frames(self.detector, self.cfg, frames_u8, src_hw)
+        self._calibrated = True
 
     def _fresh_state(self) -> TrackerState:
         raise NotImplementedError
@@ -148,16 +204,23 @@ class _Session:
     def _warmup(self, frames_u8: np.ndarray) -> float:
         t0 = time.perf_counter()
         saved = self.state
-        self._device_step(frames_u8, tuple(frames_u8.shape[1:3]))
+        with self.detector.uncalibrated_ok():
+            self._device_step(frames_u8, tuple(frames_u8.shape[1:3]))
         self.state = saved
         return time.perf_counter() - t0
 
-    def _timed_step(self, frames_u8: np.ndarray):
+    def _timed_step(self, frames: Sequence[Frame]):
+        """Decode (JPEG bytes), calibrate (int8, first step), one device step;
+        timed from the host frames to the outputs on the host. Returns
+        (outputs, scale from network to source pixels)."""
         t0 = time.perf_counter()
-        outputs, scale = self._device_step(frames_u8, tuple(frames_u8.shape[1:3]))
+        frames_u8, denom = self._frame_decoder.decode_batch(frames)
+        src_hw = tuple(frames_u8.shape[1:3])
+        self._ensure_calibrated(frames_u8, src_hw)
+        outputs, scale = self._device_step(frames_u8, src_hw)
         self._latency.add(time.perf_counter() - t0)
         self.frames_seen += 1
-        return outputs, scale
+        return outputs, float(scale) / denom
 
     def latency_stats(self) -> dict:
         return self._latency.stats()
@@ -192,13 +255,14 @@ class OnlineTracker(_Session):
         Returns seconds."""
         return self._warmup(np.zeros((1,) + tuple(src_hw) + (3,), np.uint8))
 
-    def step(self, frame, timestamp_micros: int) -> List[subm.TrackRecord]:
-        """One (H, W, 3) uint8 frame -> this frame's track records, timed
-        from the host frame to the records' arrays on the host."""
-        outputs, scale = self._timed_step(_decoded(frame)[None])
+    def step(self, frame: Frame, timestamp_micros: int) -> List[subm.TrackRecord]:
+        """One (H, W, 3) uint8 frame or JPEG bytes -> this frame's track
+        records, timed from the host frame to the records' arrays on the
+        host."""
+        outputs, scale = self._timed_step([frame])
         return subm.records_from_track_outputs(
             outputs[None], self.context_name, [timestamp_micros], self.camera_name,
-            scale=float(scale))
+            scale=scale)
 
 
 class OnlineMultiCamTracker(_Session):
@@ -230,14 +294,15 @@ class OnlineMultiCamTracker(_Session):
         kept. Returns seconds."""
         return self._warmup(np.zeros((self.num_cams,) + tuple(src_hw) + (3,), np.uint8))
 
-    def step(self, frames: Sequence, timestamp_micros: int) -> List[subm.TrackRecord]:
-        """One rig tick: frames[i] belongs to ``camera_names[i]``."""
+    def step(self, frames: Sequence[Frame], timestamp_micros: int) -> List[subm.TrackRecord]:
+        """One rig tick: frames[i] (array or JPEG bytes) belongs to
+        ``camera_names[i]``."""
         if len(frames) != self.num_cams:
             raise ValueError(f"expected {self.num_cams} frames, got {len(frames)}")
-        outputs, scale = self._timed_step(np.stack([_decoded(f) for f in frames]))
+        outputs, scale = self._timed_step(list(frames))
         records: List[subm.TrackRecord] = []
         for i, cam in enumerate(self.camera_names):
             records.extend(subm.records_from_track_outputs(
                 outputs[i][None], self.context_name, [timestamp_micros], cam,
-                scale=float(scale)))
+                scale=scale))
         return records

@@ -16,15 +16,22 @@ Outputs come back once per chunk through ``RollingFetch``, which keeps at
 most ``prefetch_depth`` chunks in flight. Boxes map back to source pixels
 through the letterbox scale and the decode scale.
 
+A segment's frames are decoded arrays or JPEG bytes (``jpeg_frames``, e.g.
+from ``data/waymo.py iter_segments``); JPEG chunks are decoded in the
+prefetch worker by the native batch decoder at ``decode_scale_denom``
+(libjpeg's DCT-scaled decode), so they cross already at the scaled size.
+
 Detection goes through ``dispatch_detect``: the plain batched forward, or the
 test-time augmentation union (``pipeline/tta.py``) when the preset asks for
-it. ``run_segments`` drives many segments with manifest resume and writes a
+it. Under ``detector.quant='int8'`` the first real chunk calibrates the
+activation scales (``calibrate_params_from_frames``), as in every driver.
+``run_segments`` drives many segments with manifest resume and writes a
 ``.gallery.npz`` sidecar beside each track file (``pipeline/link.py``).
-JPEG ingest is a later slice of the port.
 """
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import time
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
@@ -33,10 +40,12 @@ import numpy as np
 import torch
 
 from waymo_2d_tracking_tpu_torch.config import Config
+from waymo_2d_tracking_tpu_torch.data.jpeg import BatchJpegDecoder, jpeg_dims
 from waymo_2d_tracking_tpu_torch.data.prefetch import DevicePrefetcher
 from waymo_2d_tracking_tpu_torch.data.preprocess import area_downscale, letterbox_batch
 from waymo_2d_tracking_tpu_torch.io_out import submission as subm
 from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
+from waymo_2d_tracking_tpu_torch.models.quant import is_calibrated
 from waymo_2d_tracking_tpu_torch.pipeline.tta import detect_tta_batch
 from waymo_2d_tracking_tpu_torch.tracker import init_state
 from waymo_2d_tracking_tpu_torch.tracker.graph import track_chunk
@@ -45,20 +54,30 @@ from waymo_2d_tracking_tpu_torch.types import Detections
 
 @dataclasses.dataclass
 class SegmentFrames:
-    """A segment's frames for one camera, host-side: (T, H, W, 3) uint8
-    frames, already decoded (JPEG ingest is a later slice of the port)."""
+    """A segment's frames for one camera, host-side: ``frames`` (T, H, W, 3)
+    uint8, already decoded, or ``jpeg_frames``, a sequence of JPEG bytes
+    decoded a chunk at a time in the prefetch worker."""
 
     context_name: str
     camera_name: int
     timestamps: Sequence[int]
-    frames: np.ndarray
+    frames: Optional[np.ndarray] = None
+    jpeg_frames: Optional[Sequence[bytes]] = None
+    _src_hw: Optional[Tuple[int, int]] = dataclasses.field(default=None, repr=False)
 
     @property
     def num_frames(self) -> int:
         return len(self.timestamps)
 
     def source_hw(self) -> Tuple[int, int]:
-        return tuple(self.frames.shape[1:3])
+        """Full-resolution (H, W), cached; for JPEG bytes read from the first
+        frame's header (``jpeg_dims``, no decode)."""
+        if self._src_hw is None:
+            if self.frames is not None:
+                self._src_hw = tuple(self.frames.shape[1:3])
+            else:
+                self._src_hw = jpeg_dims(bytes(self.jpeg_frames[0]))
+        return self._src_hw
 
     def scaled_hw(self, scale_denom: int = 1) -> Tuple[int, int]:
         """(H, W) after a downscale by ``scale_denom``: ceil(src / denom),
@@ -67,22 +86,54 @@ class SegmentFrames:
         return (-(-h // scale_denom), -(-w // scale_denom))
 
     def chunk_iter(self, chunk: int, scale_denom: int = 1) -> Iterator[np.ndarray]:
-        """Yield (chunk, H, W, 3) uint8 arrays, downscaled on the host by
-        ``scale_denom`` (``area_downscale`` on CPU tensors: the bytes of the
-        JAX package's ``cv2.resize(..., INTER_AREA)``). The last chunk is
-        padded by REPEATING the final real frame, not zeros: the tracker
-        treats pad frames as real ones, and a blank tail longer than max_age
-        would age out every live track. Pad-frame outputs are trimmed by the
-        caller."""
-        for start in range(0, self.num_frames, chunk):
-            block = self.frames[start:start + chunk]
-            if scale_denom > 1:
-                block = area_downscale(torch.from_numpy(np.ascontiguousarray(block)),
-                                       scale_denom).numpy()
-            if block.shape[0] < chunk:
-                pad = chunk - block.shape[0]
-                block = np.concatenate([block, np.repeat(block[-1:], pad, axis=0)])
-            yield block
+        """Yield (chunk, H, W, 3) uint8 arrays at ``scaled_hw(scale_denom)``:
+        decoded frames downscaled on the host (``area_downscale`` on CPU
+        tensors: the bytes of the JAX package's ``cv2.resize(...,
+        INTER_AREA)``), JPEG bytes decoded by the native batch decoder at
+        1/``scale_denom``. The last chunk is padded by REPEATING the final
+        real frame, not zeros: the tracker treats pad frames as real ones,
+        and a blank tail longer than max_age would age out every live track.
+        Pad-frame outputs are trimmed by the caller."""
+        decoder = None
+        if self.frames is None:
+            decoder = BatchJpegDecoder(*self.scaled_hw(scale_denom), scale_denom=scale_denom)
+        try:
+            for start in range(0, self.num_frames, chunk):
+                if decoder is not None:
+                    block = decoder.decode(self.jpeg_frames[start:start + chunk])
+                else:
+                    block = self.frames[start:start + chunk]
+                    if scale_denom > 1:
+                        block = area_downscale(torch.from_numpy(np.ascontiguousarray(block)),
+                                               scale_denom).numpy()
+                if block.shape[0] < chunk:
+                    pad = chunk - block.shape[0]
+                    block = np.concatenate([block, np.repeat(block[-1:], pad, axis=0)])
+                yield block
+        finally:
+            if decoder is not None:
+                decoder.close()
+
+
+def calibrate_params_from_frames(detector: DetectorRunner, cfg: Config, frames_u8, src_hw) -> None:
+    """The int8 calibration hook of every driver (``detector.quant='int8'``):
+    letterbox the first real chunk exactly as serving does and record the
+    activation scales with one float pass (``DetectorRunner.calibrate``).
+    Nothing to do for a float config or an already calibrated detector (a
+    calibrated checkpoint). Ends with the guard: the detector is calibrated
+    for serving, or this raised. ``frames_u8``: (N, H, W, 3) uint8 at
+    ``src_hw``, host array or device tensor."""
+    if cfg.detector.quant == "off":
+        return
+    if not is_calibrated(detector.module):
+        if isinstance(frames_u8, np.ndarray):
+            frames_u8 = torch.from_numpy(np.ascontiguousarray(frames_u8))
+        frames = frames_u8.to(detector.device)
+        images, _ = letterbox_batch(frames, src_hw, cfg.detector.image_size)
+        detector.calibrate(images)
+        logging.getLogger(__name__).info(
+            "int8 PTQ: calibrated activation scales on one %d-frame chunk", images.shape[0])
+    detector.check_calibrated()
 
 
 class RollingFetch:
@@ -144,6 +195,15 @@ class SegmentPipeline:
         self.device = self.detector.device
         self.last_state = None
         self._graphs: Dict = {}    # captured tracker steps (tracker/graph.py)
+        self._calibrated = False
+
+    def ensure_calibrated(self, frames_u8, src_hw) -> None:
+        """int8: calibrate on the first real chunk (``frames_u8`` at
+        ``src_hw``, after the decode downscale), once per pipeline."""
+        if self._calibrated or self.cfg.detector.quant == "off":
+            return
+        calibrate_params_from_frames(self.detector, self.cfg, frames_u8, src_hw)
+        self._calibrated = True
 
     def preprocess(self, frames_u8: np.ndarray, src_hw):
         """Host (N, H, W, 3) uint8 frames at the source size ``src_hw`` ->
@@ -172,13 +232,16 @@ class SegmentPipeline:
         scale = 1.0
         t0 = time.perf_counter()
         fetcher = RollingFetch(depth=cfg.pipeline.prefetch_depth)
-        # on the card full-size frames cross and are downscaled there
-        blocks = segment.chunk_iter(chunk, scale_denom=1 if on_card else sd)
+        # on the card decoded full-size frames cross and are downscaled
+        # there; JPEG bytes are decoded at the scaled size on the host
+        card_downscale = on_card and segment.frames is not None
+        blocks = segment.chunk_iter(chunk, scale_denom=1 if card_downscale else sd)
         with DevicePrefetcher(blocks, depth=cfg.pipeline.prefetch_depth,
                               device=self.device) as prefetcher:
             for frames in prefetcher:
-                if on_card:
+                if card_downscale:
                     frames = area_downscale(frames, sd)
+                self.ensure_calibrated(frames, src_hw)
                 images, scale = letterbox_batch(frames, src_hw, cfg.detector.image_size)
                 dets = dispatch_detect(self.detector, cfg, images)
                 if detections_only:

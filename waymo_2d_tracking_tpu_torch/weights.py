@@ -11,7 +11,10 @@ module names of the port follow the flax names, so a leaf at
   (P, P, C) input in NHWC order, like flax, so no permutation is needed);
 - BatchNorm / GroupNorm scale -> weight, bias -> bias; batch_stats
   mean / var -> running_mean / running_var;
-- the per-level FCOS ``scale{l}`` scalars stay scalars.
+- the per-level FCOS ``scale{l}`` scalars stay scalars;
+- a calibrated int8 checkpoint's ``quant`` collection (``act_absmax`` per
+  quantized conv) -> the ``QuantConv2d`` buffers of the same name, so the
+  port serves the JAX package's activation scales.
 
 (``train/port_torch.py`` in the JAX package holds the opposite mapping.)
 ``load_npz`` reads the flat ``.npz`` form of such a tree (keys joined by
@@ -39,7 +42,8 @@ def _flatten(tree, prefix=()):
 
 
 def from_flax_numpy(variables) -> Dict[str, torch.Tensor]:
-    """flax ``{"params", "batch_stats"}`` numpy tree -> port ``state_dict``."""
+    """flax ``{"params", "batch_stats", "quant"}`` numpy tree -> port
+    ``state_dict``."""
     sd: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(variables.get("params", {})):
         *mod, leaf = path
@@ -54,6 +58,8 @@ def from_flax_numpy(variables) -> Dict[str, torch.Tensor]:
         sd[".".join(mod + [_STATS[leaf]])] = torch.tensor(value, dtype=torch.float32)
         if leaf == "mean":
             sd[".".join(mod + ["num_batches_tracked"])] = torch.zeros((), dtype=torch.long)
+    for path, value in _flatten(variables.get("quant", {})):
+        sd[".".join(path)] = torch.tensor(value, dtype=torch.float32)
     return sd
 
 
