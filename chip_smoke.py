@@ -57,11 +57,13 @@ Phases (any failed check raises, and the script exits non-zero):
    and an uncalibrated int8 detect refused;
 2b. ingest: the committed TFRecord fixture through the native scanner
    (index, metadata, JPEG bytes against the Python walk and the committed
-   SHA-256), the machine's libjpeg probed, and where the decoder shim
-   builds, the decode's SHA-256 beside the committed ones and the JPEG
-   bytes through ``run_segment`` and ``OnlineTracker`` under
-   ``headline_int8`` against the same frames decoded; where libjpeg is
-   absent the decoder must raise;
+   SHA-256), the machine's libjpeg probed, the decoder shim built by the
+   route that finds libjpeg (the system's, or Pillow's bundled
+   libjpeg-turbo against the vendored headers) with the loaded library
+   printed, every frame's decode equal to the committed SHA-256 at denom 1,
+   2 and 4, and the JPEG bytes through ``run_segment`` and
+   ``OnlineTracker`` under ``headline_int8`` against the same frames
+   decoded;
 3. eight main paths at full width in bf16 (one with int8 trunk convs) with
    seeded random weights,
    kernel counts set to 0 just before each run and read just after (a
@@ -96,6 +98,24 @@ Phases (any failed check raises, and the script exits non-zero):
    32 ticks after a warm-up: latency percentiles, 1 NMS and 1 auction
    launch a tick) and ``online_headline`` (``OnlineTracker`` on the
    headline, 64 frames of 640x960 after a warm-up).
+
+T. training (``train/train.py``): T1 one ``train_step`` at the tiny parity
+   config (float32, TF32 off) on the card and on the CPU from the same
+   weights and batch, AdamW and SGD, accumulation 2, EMA and remat on, the
+   loss, gradients, updates, EMA and BatchNorm buffers within stated
+   tolerances; T2 the learning proof (slim 64x96, batch 8, 300 steps on one
+   batch through ``train_loop`` with validation): loss halved, recall@0.5
+   <= 0.2 untrained and >= 0.6 trained through ``detect`` (the NMS kernel),
+   and a checkpoint restored and stepped 5 times bit-equal to 5 steps
+   without it; T3 the pixel fixture's recipe
+   (``tools/train_pixels_fixture.py``, 800 steps at batch 16, and its ReID
+   variant) with its recall and separation gates, then the pixel-golden
+   clips and the ReID recovery clip on the port-trained weights beside the
+   committed fixture's metrics (reported); T4 five timed steps after two
+   warm-up steps at the headline width (batch 16, bf16, ReID loss 0.5) and
+   config 4 (batch 8; remat off and on; accumulation 2): steps/s, images/s,
+   peak memory, the loss, a forward / loss / backward / optimizer split by
+   CUDA events and one traced step's busy share and top kernels.
 
 The last two lines are the kernels' JSON record and the device record. It
 imports no JAX, nothing of the JAX package and no cv2.
@@ -995,6 +1015,7 @@ def phase_fixtures(np, torch, nms, assign):
     log(f"[2] kernel launches in the fixture phase: nms {launches[0]}, auction {launches[1]}")
     if min(launches) == 0:
         raise AssertionError("a kernel did not run in the fixture phase")
+    return {"seed5": m5.as_dict(), "dense": md.as_dict()}
 
 
 def phase_fixtures_int8(np, torch, run, config, seed5, dense, frames5, gt5, sd):
@@ -1056,20 +1077,19 @@ def libjpeg_probe():
 def phase_ingest(np, torch, card, preset, device="cuda"):
     """The committed Waymo-format TFRecord (``waymo_2d_tracking_tpu_torch/
     fixtures/ingest_fixture.tfrecord``: 16 FRONT frames at 1280x1920) through
-    the port's ingest. The TFRecord half (native index, metadata, extracted
-    JPEG bytes against the pure-Python walk and the committed SHA-256) runs
-    wherever ``g++`` does. The JPEG half needs libjpeg: where the shim builds,
-    the decoded frames' SHA-256 at denom 1 and 2 are printed beside the
-    committed ones (``tools/make_ingest_fixture.py``'s decode), ``run_segment``
-    on the JPEG bytes at the preset's denom must give exactly the records of
-    the same decoded frames passed as arrays (at 1/denom of their
-    coordinates), and an ``OnlineTracker`` fed the bytes exactly what it
-    gives on the decoded frames. Where libjpeg is absent the decoder must raise, not fall back.
-    Returns whether the JPEG half ran."""
+    the port's ingest: the native scanner (index, metadata, extracted JPEG
+    bytes against the pure-Python walk and the committed SHA-256); the JPEG
+    shim built by whichever route finds libjpeg (the system's, or Pillow's
+    bundled libjpeg-turbo against the vendored headers), its library path
+    printed; every frame's decode at each committed denom (1, 2, 4) equal to
+    the committed SHA-256; ``run_segment`` on the JPEG bytes at the preset's
+    denom exactly the records of the same decoded frames passed as arrays (at
+    1/denom of their coordinates), and an ``OnlineTracker`` fed the bytes
+    exactly what it gives on the decoded frames. Returns True."""
     import hashlib
 
     from waymo_2d_tracking_tpu_torch.config import Config, _update
-    from waymo_2d_tracking_tpu_torch.data import jpeg, waymo
+    from waymo_2d_tracking_tpu_torch.data import _native, jpeg, waymo
     from waymo_2d_tracking_tpu_torch.pipeline.online import OnlineTracker
     from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentFrames, SegmentPipeline
     from waymo_2d_tracking_tpu_torch.weights import FIXTURES_DIR
@@ -1093,24 +1113,29 @@ def phase_ingest(np, torch, card, preset, device="cuda"):
     ldconfig, headers = libjpeg_probe()
     log(f"[2b] libjpeg probe: ldconfig -p | grep -i jpeg -> {json.dumps(ldconfig.splitlines())}; "
         f"jpeglib.h {headers or 'absent'}")
-    try:
-        jpeg.BatchJpegDecoder(8, 8).close()
-    except RuntimeError as e:
-        log(f"[2b] the JPEG decoder raises, as it must without libjpeg: "
-            f"{str(e).splitlines()[0]}; the JPEG half of ingest did not run here")
-        if headers:
-            raise AssertionError("jpeglib.h is present but the decoder shim did not build")
-        return False
+    route = _native.jpeg_route()
+    jpeg.BatchJpegDecoder(8, 8).close()     # builds, loads and checks the probe JPEG
     with open("/proc/self/maps") as f:
         loaded = sorted({ln.split()[-1] for ln in f if "libjpeg" in ln})
-    for denom in ("1", "2"):
+    log(f"[2b] JPEG shim route '{route[0]}' ({' '.join(route[1] + route[2])}): loaded {loaded}, "
+        f"the probe JPEG decoded to its committed bytes")
+    for denom in sorted(fixture["decoded_sha256"]):
         block = next(seg.chunk_iter(seg.num_frames, scale_denom=int(denom)))
         got = [sha(f.tobytes()) for f in block]
-        same = sum(a == b for a, b in zip(got, fixture["decoded_sha256"][denom]))
+        want = fixture["decoded_sha256"][denom]
+        same = sum(a == b for a, b in zip(got, want))
         log(f"[2b] decoded at denom {denom} by {loaded}: {same} of {len(got)} frames' SHA-256 "
             f"equal the committed decode by {fixture['decoded_by']}; first {got[0][:16]}")
+        if same != len(want):
+            t = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+            raise AssertionError(f"ingest: frame {t} decoded at denom {denom} differs from the "
+                                 f"committed bytes")
 
-    cfg = _update(Config(), preset)
+    # seeded random weights score under the headline tracker's gates (0.5 /
+    # 0.6): lower them, as config 4's runs do, unless the preset sets them,
+    # so that the tracks the comparison needs are born
+    cfg = _update(Config(), {**preset, "tracker": {**CONFIG4_RANDOM_WEIGHT_GATES,
+                                                   **preset.get("tracker", {})}})
     sd = cfg.pipeline.decode_scale_denom
     cfg1 = _update(cfg, {"pipeline": {"decode_scale_denom": 1}})
     def scaled(recs, f):
@@ -1688,7 +1713,422 @@ def phase_new_paths(np, torch, counters, card, headline_frames):
     return paths
 
 
+# ----------------------------------------------------------------- phase T
+
+# tests/test_torch_train.py's tiny parity config, and
+# tests/integration/test_train_to_detect.py's learning-proof detector
+TRAIN_TINY = dict(backbone="resnet18slim", image_size=(64, 96), fpn_channels=32,
+                  fpn_levels=(3, 4, 5), head_depth=1, pre_nms_topk=64, max_detections=16,
+                  embed_dim=16, dtype="float32", score_threshold=0.3)
+TRAIN_PROOF_DET = {**TRAIN_TINY, "embed_dim": 0}
+# the committed fixture's metrics on the two pixel clips (phase 2 measures
+# them again in the same run): tests/golden/test_pixels_to_mota.py
+FIXTURE_GOLDEN = {"seed5": {"mota": 0.7971, "idf1": 0.8853, "num_idsw": 5, "mostly_tracked": 8},
+                  "dense": {"mota": 0.4352, "idf1": 0.677, "num_idsw": 5}}
+# T1 tolerances, card against CPU (the reasons are tests/test_torch_train.py's:
+# a ReLU input within the rounding difference of zero flips and carries its
+# whole gradient, and Adam's first update is about lr * sign(g))
+# (each a relative L2 difference per tensor, the largest over the tensors;
+# "param": the parameters after the step, "update": their change; a
+# zero-initialised bias after one step is all update, Adam's sign flips
+# included, hence "param" well above the gradients' agreement)
+T1_TOL = {"loss": 1e-4, "grad": 0.1, "param": 0.05, "update": 0.5, "stats": 1e-4}
+
+
+def _noise_grad(name: str) -> bool:
+    """A conv bias right before a GroupNorm of one channel per group: its
+    gradient is zero analytically, rounding noise on any device."""
+    return name.endswith(".bias") and ("tower.conv" in name or name == "reid.conv0.bias")
+
+
+def _rel_l2(torch, got, want) -> float:
+    den = float(torch.linalg.vector_norm(want))
+    return float(torch.linalg.vector_norm(got - want)) / (den if den > 0 else 1.0)
+
+
+def tiny_batch(np, n=4, seed=0):
+    from waymo_2d_tracking_tpu_torch.data.synthetic import render_detection_batch
+
+    b = render_detection_batch(np.random.default_rng(seed), n, TRAIN_TINY["image_size"], max_gt=6)
+    b["gt_track_ids"] = np.where(b["gt_valid"], np.arange(6)[None, :] % 4, -1).astype(np.int32)
+    return b
+
+
+def sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_train_parity(np, torch, card, devices=("cpu", "cuda")):
+    """T1: one ``train_step`` at the tiny parity config (float32, TF32 off)
+    on the card and on the CPU from the same weights and batch, for AdamW
+    and SGD with accumulation 2, EMA and remat on."""
+    from waymo_2d_tracking_tpu_torch.config import Config, DetectorConfig, TrainConfig
+    from waymo_2d_tracking_tpu_torch.train.train import DetectorTrainer, _as_batch
+
+    batch = tiny_batch(np)
+    for optimizer in ("adamw", "sgd"):
+        cfg = Config(detector=DetectorConfig(**TRAIN_TINY), train=TrainConfig(
+            batch_size=4, learning_rate=3e-3, warmup_steps=0, total_steps=10,
+            weight_decay=1e-4, ema_decay=0.9, reid_loss_weight=0.5, optimizer=optimizer,
+            grad_accum_steps=2, remat=True))
+        out = {}
+        for dev in devices:
+            tr = DetectorTrainer(cfg, device=dev)
+            st_g = tr.create_state(torch.Generator().manual_seed(0))
+            grads, _, m = tr._grads_and_stats(st_g, _as_batch(batch, tr.device))
+            st = tr.create_state(torch.Generator().manual_seed(0))
+            start = {k: v.detach().cpu().clone() for k, v in st.params.items()}
+            st, m = tr.train_step(st, batch)
+            cpu = lambda d: {k: v.detach().float().cpu() for k, v in d.items()}  # noqa: E731
+            out[dev] = dict(loss=float(m["loss"]), grads=cpu(grads), params=cpu(st.params),
+                            stats=cpu(st.batch_stats), ema=cpu(st.ema_params), start=start)
+        a, b = out[devices[1]], out[devices[0]]
+        lr = DetectorTrainer(cfg, device="cpu").tx.schedule(0)
+        loss_d = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+        grad_d = max(_rel_l2(torch, a["grads"][k], b["grads"][k])
+                     for k in b["grads"] if not _noise_grad(k))
+        upd_d = ema_d = noise = 0.0
+        par_d = max(_rel_l2(torch, a["params"][k], b["params"][k]) for k in b["params"]
+                    if not _noise_grad(k))
+        for k in b["params"]:
+            da, db = a["params"][k] - b["start"][k], b["params"][k] - b["start"][k]
+            ea, eb = a["ema"][k] - b["start"][k], b["ema"][k] - b["start"][k]
+            if _noise_grad(k):
+                noise = max(noise, float(da.abs().max()), float(db.abs().max()))
+                continue
+            upd_d = max(upd_d, _rel_l2(torch, da, db))
+            ema_d = max(ema_d, _rel_l2(torch, ea, eb))
+        stats_d = max(_rel_l2(torch, a["stats"][k], b["stats"][k]) for k in b["stats"])
+        log(f"[T1] {optimizer}, accum 2, EMA 0.9, remat, tiny f32 config, card against CPU "
+            f"({card}): loss {a['loss']:.7f} vs {b['loss']:.7f} (rel {loss_d:.2e}); largest "
+            f"relative L2 difference of a gradient {grad_d:.2e}, of an updated parameter "
+            f"{par_d:.2e}, of a parameter's update {upd_d:.2e}, of an EMA change {ema_d:.2e}, "
+            f"of a BatchNorm buffer {stats_d:.2e}; noise-gradient biases moved at most {noise:.2e} "
+            f"(lr {lr:.1e}); tolerances {json.dumps(T1_TOL)}")
+        if not (loss_d <= T1_TOL["loss"] and grad_d <= T1_TOL["grad"] and par_d <= T1_TOL["param"]
+                and upd_d <= T1_TOL["update"] and ema_d <= T1_TOL["update"]
+                and stats_d <= T1_TOL["stats"] and noise <= lr * (1 + 1e-4)):
+            raise AssertionError(f"T1 {optimizer}: a train step on the card differs from the CPU")
+
+
+def phase_train_proof(np, torch, card, nms, device="cuda", steps=300):
+    """T2: the learning proof (slim 64x96, batch 8, 300 steps on one
+    rendered batch) through ``train_loop`` with validation, recall through
+    ``DetectorRunner.detect`` before and after, and a checkpoint resume bit
+    for bit."""
+    import itertools
+    import re
+
+    from waymo_2d_tracking_tpu_torch.config import Config, DetectorConfig, TrainConfig
+    from waymo_2d_tracking_tpu_torch.data.synthetic import render_detection_batch
+    from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
+    from waymo_2d_tracking_tpu_torch.train.train import DetectorTrainer, train_loop
+
+    ckpt = os.path.join(scratch_dir(), "train_ckpt")
+    cfg = Config(detector=DetectorConfig(**TRAIN_PROOF_DET), train=TrainConfig(
+        batch_size=8, learning_rate=3e-3, warmup_steps=20, total_steps=steps, weight_decay=1e-5,
+        checkpoint_dir=ckpt))
+    batch = render_detection_batch(np.random.default_rng(0), 8, TRAIN_PROOF_DET["image_size"])
+    images = torch.from_numpy(batch["images"]).to(device)
+    tr = DetectorTrainer(cfg, device=device)
+    st = tr.create_state(torch.Generator().manual_seed(0))
+    nms.nms_mask_cuda.launches = 0
+    runner = DetectorRunner(cfg.detector, tr.eval_variables(st), device=device)
+    recall_at_iou = _load_tool().recall_at_iou
+    r0 = recall_at_iou(runner.detect(images).to_numpy(), batch)
+    st, m = tr.train_step(st, batch)
+    first = float(m["loss"])
+    lines = []
+    sync(torch, device)
+    t0 = time.perf_counter()
+    st = train_loop(tr, itertools.repeat(batch), steps - 1, st, log_every=100,
+                    log_fn=lines.append, val_batches=[batch], val_every=steps // 2)
+    sync(torch, device)
+    secs = time.perf_counter() - t0
+    last = float(re.search(rf"step {steps}: loss=([0-9.]+)", "\n".join(lines)).group(1))
+    runner.module.load_state_dict(tr.eval_variables(st))
+    r1 = recall_at_iou(runner.detect(images).to_numpy(), batch)
+    launches = nms.nms_mask_cuda.launches
+    vals = [ln for ln in lines if " val " in ln]
+    log(f"[T2] learning proof ({card}): loss {first:.4f} -> {last:.4f} in {steps} steps, "
+        f"{(steps - 1) / secs:.1f} steps/s through train_loop (validation at {steps // 2} and "
+        f"{steps} included); "
+        f"recall@0.5 untrained {r0:.3f}, trained {r1:.3f}; NMS launches {launches}; "
+        f"best checkpoint {os.path.exists(os.path.join(ckpt, 'best'))}; {vals[-1][:160]}")
+    if not (last < 0.5 * first and r0 <= 0.2 and r1 >= 0.6 and len(vals) == 2
+            and (launches > 0 or device == "cpu")):
+        raise AssertionError("T2: the learning proof failed")
+
+    # checkpoint round trip: 5 more steps from the restored state equal 5
+    # steps without it, bit for bit (deterministic kernels for the 10 steps)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        path = tr.save_checkpoint(st)
+        restored = tr.restore_checkpoint(path, st)
+        for _ in range(5):
+            st, _ = tr.train_step(st, batch)
+        for _ in range(5):
+            restored, _ = tr.train_step(restored, batch)
+        a, b = st.to_tree(), restored.to_tree()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    same = a["step"] == b["step"] and all(
+        torch.equal(a[part][k], b[part][k]) for part in ("params", "batch_stats")
+        for k in a[part]) and all(torch.equal(a["opt_state"][s][k], b["opt_state"][s][k])
+                                  for s in ("mu", "nu") for k in a["opt_state"][s])
+    log(f"[T2] checkpoint at step {a['step'] - 5} saved, restored and stepped 5 times: "
+        f"{'bit-equal' if same else 'DIFFERENT'} to 5 steps without the round trip")
+    if not same:
+        raise AssertionError("T2: the resumed state differs from the uninterrupted one")
+
+    # COCO input: the ingest fixture's segment converted, batches decoded and
+    # resized in a worker thread and copied to the device through the
+    # prefetcher's pinned buffers, two steps on them
+    from waymo_2d_tracking_tpu_torch.data.coco import coco_batch_iterator, convert_segments_to_coco
+    from waymo_2d_tracking_tpu_torch.weights import FIXTURES_DIR
+
+    coco = os.path.join(scratch_dir(), "coco")
+    n_images = convert_segments_to_coco(FIXTURES_DIR, coco)
+    it = coco_batch_iterator(coco, 2, TRAIN_PROOF_DET["image_size"], num_workers=1,
+                             prefetch_depth=2, scale_range=(0.8, 1.2), color_jitter=0.2,
+                             device=device)
+    try:
+        got = []
+        for coco_batch in itertools.islice(it, 2):
+            got.append(coco_batch["images"].device.type)
+            st, m = tr.train_step(st, coco_batch)
+    finally:
+        it.close()
+    log(f"[T2] COCO input: {n_images} images converted from the ingest fixture, 2 batches of 2 "
+        f"through coco_batch_iterator (1 worker, prefetch 2) on {got}, 2 steps, loss "
+        f"{float(m['loss']):.4f}")
+    if got != [torch.device(device).type] * 2 or not math.isfinite(float(m["loss"])):
+        raise AssertionError("T2: the COCO batches did not train on the device")
+
+
+def _load_tool():
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "waymo_2d_tracking_tpu_torch",
+                        "tools", "train_pixels_fixture.py")
+    spec = importlib.util.spec_from_file_location("train_pixels_fixture", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_train_fixture(np, torch, card, committed, device="cuda", steps=800):
+    """T3: the fixture recipe on the card (800 steps, batch 16, 256x384, and
+    the ReID variant) with the tool's gates, then the pixel-golden clips and
+    the ReID recovery clip through the port on the port-trained weights,
+    beside the committed fixture's metrics (reported, not gated: another
+    random stream trains other weights)."""
+    from waymo_2d_tracking_tpu_torch.config import (
+        Config, DetectorConfig, PipelineConfig, TrackerConfig,
+    )
+    from waymo_2d_tracking_tpu_torch.data.synthetic import SyntheticClipConfig, render_video_clip
+    from waymo_2d_tracking_tpu_torch.eval.mot import evaluate_mot, gt_to_frames
+    from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentFrames, SegmentPipeline
+
+    tool = _load_tool()
+    out = os.path.join(scratch_dir(), "trained_fixtures")
+
+    def run(det_kw, clip, sd, **trk_kw):
+        frames, gt = render_video_clip(clip)
+        cfg = Config(detector=DetectorConfig(**det_kw),
+                     tracker=TrackerConfig(**{**PIXELS_TRK, **trk_kw}),
+                     pipeline=PipelineConfig(chunk_frames=16, interp_max_gap=0))
+        records, _ = SegmentPipeline(cfg, sd, device=device).run_segment(
+            SegmentFrames("fixture", 1, list(range(clip.num_frames)), frames))
+        return evaluate_mot(gt_to_frames(gt), records_to_frames(np, records, clip.num_frames))
+
+    for reid in (False, True):
+        t0 = time.perf_counter()
+        meta = tool.main(out, steps=steps, batch_size=16, seed=0, reid=reid, device=device,
+                         log=lambda s: log(f"[T3] {'reid ' if reid else ''}{s}"))
+        log(f"[T3] {'ReID ' if reid else ''}fixture recipe trained and checked in "
+            f"{time.perf_counter() - t0:.1f} s ({card}): held-out recall@0.5 "
+            f"{meta['held_out_recall_at_0.5']}" + (f", separation {json.dumps(meta['reid_separation'])}"
+                                                   if reid else ""))
+        sd = {k: v.detach().cpu() for k, v in meta["state_dict"].items()}
+        if not reid:
+            seed5 = SyntheticClipConfig(num_frames=80, num_objects=8, image_size=(1024, 1536),
+                                        seed=5)
+            dense = SyntheticClipConfig(num_frames=80, num_objects=14, image_size=(1024, 1536),
+                                        seed=11)
+            keys = ("mota", "idf1", "num_idsw", "mostly_tracked")
+            for name, clip in (("seed5", seed5), ("dense", dense)):
+                got = run(PIXELS_DET, clip, sd, birth_iou_threshold=0.3).as_dict()
+                log(f"[T3] {name} clip on the port-trained weights: "
+                    f"{json.dumps({k: got[k] for k in keys})}; committed fixture in this run "
+                    f"{json.dumps({k: committed[name][k] for k in keys})}, its golden "
+                    f"{json.dumps(FIXTURE_GOLDEN[name])}")
+        else:
+            clip = SyntheticClipConfig(num_frames=100, num_objects=6, image_size=(1024, 1536),
+                                       seed=29, occlusion_gap=(30, 52), texture_amp=0.25)
+            det = {**PIXELS_DET, "embed_dim": 32}
+            base = dict(embed_dim=32, max_lost_age=30, birth_iou_threshold=0.3)
+            off = run(det, clip, sd, **base)
+            on = run(det, clip, sd, **base, reid_recovery=True, appearance_gate=0.3,
+                     gallery_size=4)
+            log(f"[T3] ReID recovery clip on the port-trained ReID weights: off idf1 "
+                f"{off.idf1:.4f} idsw {off.num_idsw}; on idf1 {on.idf1:.4f} idsw {on.num_idsw}")
+
+
+def profile_step(torch, step):
+    """Device busy share of one traced call of ``step`` and its top device
+    kernels: the union of device intervals over the span from the first
+    device event to the last."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
+    if not spans:
+        return None, []
+    busy, cur_s, cur_e = 0.0, spans[0][0], spans[0][1]
+    for s0, e0 in spans[1:]:
+        if s0 > cur_e:
+            busy += cur_e - cur_s
+            cur_s = s0
+        cur_e = max(cur_e, e0)
+    busy += cur_e - cur_s
+    span = max(e0 for _, e0 in spans) - spans[0][0]
+    by_name = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return busy / span, [[k[:60], round(v, 3)] for k, v in top]
+
+
+T4_RUNS = [("headline", HEADLINE["detector"], 16, {"reid_loss_weight": 0.5}, True),
+           ("config4", CONFIG4["detector"], 8, {"remat": False}, False),
+           ("config4 remat", CONFIG4["detector"], 8, {"remat": True}, False),
+           ("config4 accum 2", CONFIG4["detector"], 8, {"grad_accum_steps": 2}, False)]
+
+
+def phase_train_full_width(np, torch, card, device="cuda", runs=T4_RUNS):
+    """T4: a few timed train steps at full width after a warm-up: the
+    headline (ResNet-18 s2d, FPN 128 P3-P6, FCOS 128x2, ReID 128, 448x672,
+    bf16) at batch 16 with the ReID loss at 0.5 on rendered identity
+    batches; config 4 (ResNet-50, FPN 256 P3-P7, FCOS 4x256, 640x960) at
+    batch 8 with remat off and on and with 2 accumulation steps. A fixed
+    batch each, warm-up 2 steps of the schedule so the loss moves."""
+    from waymo_2d_tracking_tpu_torch.config import Config, _update
+    from waymo_2d_tracking_tpu_torch.data.synthetic import (
+        random_rect_batch,
+        random_rect_batch_reid,
+    )
+    from waymo_2d_tracking_tpu_torch.train.train import DetectorTrainer, _as_batch
+
+    cuda = torch.device(device).type == "cuda"
+    for name, det, bs, train_kw, reid in runs:
+        cfg = _update(Config(), {"detector": det, "train": {
+            "batch_size": bs, "learning_rate": 1e-3, "warmup_steps": 2, "total_steps": 1000,
+            **train_kw}})
+        hw = tuple(cfg.detector.image_size)
+        rng = np.random.default_rng(0)
+        host = (random_rect_batch_reid(rng, bs, image_hw=hw) if reid
+                else random_rect_batch(rng, bs, image_hw=hw))
+        tr = DetectorTrainer(cfg, device=device)
+        st = tr.create_state(torch.Generator().manual_seed(0))
+        batch = _as_batch(host, tr.device)
+        losses = []
+        for _ in range(2):
+            st, m = tr.train_step(st, batch)
+            losses.append(m["loss"])
+        sync(torch, device)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        steps = 5
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            st, m = tr.train_step(st, batch)
+            losses.append(m["loss"])
+        sync(torch, device)
+        secs = (time.perf_counter() - t0) / steps
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30 if cuda else float("nan")
+        losses = [float(v) for v in losses]
+        split = None
+        if cfg.train.grad_accum_steps == 1 and cuda:
+            split = train_step_split(torch, tr, st, batch)
+        busy, top = (profile_step(torch, lambda: tr.train_step(st, batch)) if cuda
+                     else (None, []))
+        log(f"[T4] {name} train step, batch {bs} at {hw[0]}x{hw[1]} {cfg.detector.dtype} "
+            f"({card}): {1 / secs:.2f} steps/s, {bs / secs:.1f} images/s ({secs * 1e3:.1f} ms a "
+            f"step, host clock over {steps} steps); peak device memory {peak:.2f} GiB; loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f} over {len(losses)} steps on a fixed batch; "
+            + (f"split (CUDA events, median of 3) forward {split[0]:.2f} / loss {split[1]:.2f} / "
+               f"backward {split[2]:.2f} / optimizer {split[3]:.2f} ms; " if split else "")
+            + ("device busy share of one traced step "
+               + ("not measured" if busy is None else f"{busy:.4f}")
+               + f", most device time (ms) {json.dumps(top)}"))
+        if not (all(math.isfinite(v) for v in losses) and losses[-1] < losses[0]):
+            raise AssertionError(f"T4 {name}: the loss is not finite and falling")
+        del tr, st, batch
+        if cuda:
+            torch.cuda.empty_cache()
+
+
+def train_step_split(torch, tr, st, batch):
+    """Median over 3 steps of (forward, loss, backward, optimizer) ms by CUDA
+    events around the trainer's own pieces of a step."""
+    from waymo_2d_tracking_tpu_torch.models.detector import _no_tf32
+
+    reid_on = tr.reid_on(batch)
+    tr._bind(st)
+    leaves = list(st.params.values())
+    splits = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        with _no_tf32():
+            ev[0].record()
+            head_out, embeds = tr._forward(batch, reid_on)
+            ev[1].record()
+            loss, _ = tr._objective(head_out, embeds, batch, reid_on)
+            ev[2].record()
+            grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+            ev[3].record()
+            tr.tx.update(st.params, dict(zip(st.params, grads)), st.opt_state)
+            ev[4].record()
+        ev[4].synchronize()
+        splits.append([ev[i].elapsed_time(ev[i + 1]) for i in range(4)])
+    return [statistics.median(s[i] for s in splits) for i in range(4)]
+
+
+def phase_train(np, torch, counters, card, nms, committed):
+    """The training slice: T1 parity, T2 learning proof, T3 fixture recipe,
+    T4 full width. Returns the kernel launches of T2 and T3 (validation
+    detects and the tracker runs on the trained weights)."""
+    t0 = time.perf_counter()
+    phase_train_parity(np, torch, card)
+    log(f"[T1] done in {time.perf_counter() - t0:.1f} s")
+    zero_counts(counters)
+    t0 = time.perf_counter()
+    phase_train_proof(np, torch, card, nms)
+    log(f"[T2] done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    phase_train_fixture(np, torch, card, committed)
+    log(f"[T3] done in {time.perf_counter() - t0:.1f} s")
+    counts = read_counts(counters)
+    log(f"[T] kernel launches in T2 and T3: {json.dumps(counts)}")
+    if counts["nms_mask"] == 0 or counts["auction"] == 0:
+        raise AssertionError("the NMS or the auction kernel did not run in the training phases")
+    t0 = time.perf_counter()
+    phase_train_full_width(np, torch, card)
+    log(f"[T4] done in {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
+    # cuBLAS's deterministic workspace, read when its handle is made: T2's
+    # checkpoint resume is compared bit for bit
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
 
     if not torch.cuda.is_available():
@@ -1728,10 +2168,13 @@ def main() -> int:
     log(f"[1] launches in phase 1 (comparisons and timing, not a main path): "
         f"{json.dumps({k: fn.launches for k, fn in counters.items()})}")
     phase_downscale(np, torch, smi)
-    phase_fixtures(np, torch, nms, assign)
+    committed = phase_fixtures(np, torch, nms, assign)
     phase_ingest(np, torch, smi, HEADLINE_INT8)
     paths, headline_frames = phase_headlines(np, torch, counters, smi)
     paths.update(phase_new_paths(np, torch, counters, smi, headline_frames))
+    del headline_frames
+    torch.cuda.empty_cache()
+    paths["train"] = phase_train(np, torch, counters, smi, nms, committed)
     # neither the top-k threshold nor the RoIAlign kernel is on a main path
     # (the JAX package runs them only through their own entry points); their
     # counts are 0 there and are reported as they are

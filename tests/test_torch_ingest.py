@@ -426,3 +426,88 @@ def test_chip_smoke_ingest_phase_on_the_cpu(capsys):
     assert smoke.phase_ingest(np, torch, "cpu", preset, device="cpu")
     out = capsys.readouterr().out
     assert "16 of 16 frames' SHA-256 equal" in out and "exactly the" in out
+
+
+# ------------------------------------------- the second way to find libjpeg
+
+SYSTEM_LIBJPEG = "/lib/x86_64-linux-gnu/libjpeg.so.62"
+
+
+def _pillow_route_lib():
+    return _native.pillow_libjpeg()
+
+
+@pytest.mark.parametrize("which", ["system-so-by-path", "pillow-bundled"])
+def test_jpeg_shim_through_vendored_headers_decodes_the_fixture(which, tmp_path, monkeypatch):
+    """With no system ``jpeglib.h`` in reach, the shim is compiled against
+    the vendored 62-ABI headers and linked by full path (the system's
+    libjpeg 62, or the libjpeg-turbo that Pillow carries); it passes the
+    probe check and decodes the fixture to the committed SHA-256 at denom 1,
+    2 and 4."""
+    lib = SYSTEM_LIBJPEG if which == "system-so-by-path" else _pillow_route_lib()
+    if lib is None or not os.path.exists(lib):
+        pytest.skip(f"no {which} libjpeg on this machine")
+    calls = []
+    real_run = subprocess.run
+
+    def spy(cmd, *a, **k):
+        calls.append(list(cmd))
+        return real_run(cmd, *a, **k)
+
+    monkeypatch.setattr(_native, "SYSTEM_INCLUDE_DIRS", (str(tmp_path / "no-include"),))
+    monkeypatch.delenv("CPATH", raising=False)
+    monkeypatch.delenv("CPLUS_INCLUDE_PATH", raising=False)
+    monkeypatch.setattr(_native, "pillow_libjpeg", lambda: lib)
+    monkeypatch.setattr(_native, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_native, "_LIBS", {})
+    monkeypatch.setattr(subprocess, "run", spy)
+    assert _native.jpeg_route()[0] == "pillow"
+    seg = _fixture_segment()
+    blobs = seg.jpeg_frames[0:len(seg.jpeg_frames)]
+    for denom in ("1", "2", "4"):
+        h, w = (-(-s // int(denom)) for s in FIXTURE["height_width"])
+        dec = jpeg.BatchJpegDecoder(h, w, scale_denom=int(denom))
+        got = [_sha(f.tobytes()) for f in dec.decode(blobs)]
+        dec.close()
+        assert got == FIXTURE["decoded_sha256"][denom], denom
+    (cmd,) = [c for c in calls if any(a.endswith("jpeg_decode.cpp") for a in c)]
+    assert "-ljpeg" not in cmd and lib in cmd and f"-Wl,-rpath,{os.path.dirname(lib)}" in cmd
+    assert cmd[cmd.index("-I") + 1] == _native.JPEG62_HEADERS
+    with open("/proc/self/maps") as f:
+        assert os.path.realpath(lib) in f.read()
+
+
+def test_jpeg_shim_without_any_libjpeg_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(_native, "SYSTEM_INCLUDE_DIRS", (str(tmp_path / "no-include"),))
+    monkeypatch.delenv("CPATH", raising=False)
+    monkeypatch.delenv("CPLUS_INCLUDE_PATH", raising=False)
+    monkeypatch.setattr(_native, "pillow_libjpeg", lambda: None)
+    monkeypatch.setattr(_native, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_native, "_LIBS", {})
+    with pytest.raises(RuntimeError, match="needs libjpeg"):
+        jpeg.BatchJpegDecoder(8, 8)
+
+
+def test_jpeg_shim_that_fails_the_probe_is_refused(monkeypatch):
+    """A shim whose libjpeg refuses every frame (headers and library of
+    other ABIs) leaves frames zero and reports 0 decoded: the probe check
+    refuses it, and it is not cached."""
+
+    class Refusing:
+        def w2t_decoder_create(self, n):
+            return 1
+
+        def w2t_decoder_destroy(self, h):
+            pass
+
+        def w2t_decode_batch_scaled(self, *args):
+            return 0
+
+    with pytest.raises(RuntimeError, match="does not decode the probe"):
+        jpeg._check_probe(Refusing())
+    monkeypatch.setattr(_native, "_LIBS", {})
+    monkeypatch.setattr(jpeg, "_configure", lambda lib: None)
+    monkeypatch.setattr(_native.ctypes, "CDLL", lambda path: Refusing())
+    with pytest.raises(RuntimeError, match="does not decode the probe"):
+        jpeg.BatchJpegDecoder(8, 8)
+    assert "w2t_jpeg" not in _native._LIBS

@@ -56,7 +56,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
     for new in ("pipeline.multicam", "pipeline.online", "pipeline.offline", "pipeline.link",
                 "pipeline.manifest", "io_out.postprocess", "data.prefetch", "tracker.graph",
                 "models.quant", "data._native", "data.jpeg", "data.tfrecord_native",
-                "data.waymo", "utils.protolite"):
+                "data.waymo", "utils.protolite", "train.losses", "train.train", "eval.ap",
+                "data.coco"):
         assert f"waymo_2d_tracking_tpu_torch.{new}" in mods, new
 
 
@@ -132,6 +133,8 @@ def test_entry_points_need_a_card_unless_cpu():
     from waymo_2d_tracking_tpu_torch.tracker import Tracker, init_multicam_state, init_state
     from waymo_2d_tracking_tpu_torch.tracker.graph import CapturedTracker
     from waymo_2d_tracking_tpu_torch.types import Detections
+    from waymo_2d_tracking_tpu_torch.data.coco import coco_batch_iterator
+    from waymo_2d_tracking_tpu_torch.train.train import DetectorTrainer
 
     small = dict(backbone="resnet18slim", image_size=(64, 64), fpn_channels=32,
                  fpn_levels=(3, 4, 5), head_depth=1, head_channels=32, embed_dim=0)
@@ -141,7 +144,8 @@ def test_entry_points_need_a_card_unless_cpu():
                  lambda: MultiCamPipeline(cfg, num_cams=2), lambda: init_multicam_state(cfg, 2),
                  lambda: OnlineTracker(cfg), lambda: OnlineMultiCamTracker(cfg, [1, 2]),
                  lambda: track_detection_rows(cfg, []), lambda: DevicePrefetcher([]),
-                 lambda: prefetch_to_device([])):
+                 lambda: prefetch_to_device([]), lambda: DetectorTrainer(cfg),
+                 lambda: next(coco_batch_iterator(ROOT, 2, (32, 48)))):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             make()
     Tracker(TrackerConfig(), device="cpu").init()
@@ -151,6 +155,7 @@ def test_entry_points_need_a_card_unless_cpu():
     OnlineTracker(cfg, device="cpu")
     OnlineMultiCamTracker(cfg, [1, 2], device="cpu")
     assert list(DevicePrefetcher([], device="cpu")) == []
+    assert DetectorTrainer(cfg, device="cpu").device.type == "cpu"
     # the captured tracker step exists only on the card
     state = init_state(TrackerConfig(), device="cpu")
     det = Detections(boxes=torch.zeros(64, 4), scores=torch.zeros(64),

@@ -9,11 +9,19 @@ does about a quarter of the IDCT work. A frame that fails to decode or has
 other dimensions stays zero.
 
 There is no cv2 fallback (the port does not depend on cv2): where the shim
-cannot be built or loaded, ``BatchJpegDecoder`` raises.
+cannot be built or loaded, ``BatchJpegDecoder`` raises. A shim whose headers
+and library disagree (a struct size or version mismatch makes libjpeg refuse
+every frame, which the shim reports as frames left zero) would pass for a
+stream of black frames, so a freshly loaded shim first decodes the committed
+probe ``fixtures/jpeg_probe.jpg`` and is refused unless it gives the
+probe's committed bytes.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
+import json
+import os
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -36,8 +44,40 @@ def _configure(lib: ctypes.CDLL) -> None:
     ]
 
 
+def _check_probe(lib: ctypes.CDLL) -> None:
+    """Decode the committed probe JPEG through ``lib``; raise unless it
+    decodes to the committed bytes."""
+    from waymo_2d_tracking_tpu_torch.weights import FIXTURES_DIR
+
+    with open(os.path.join(FIXTURES_DIR, "ingest_fixture.json")) as f:
+        probe = json.load(f)["probe"]
+    with open(os.path.join(FIXTURES_DIR, probe["file"]), "rb") as f:
+        blob = f.read()
+    h, w = probe["height_width"]
+    out = np.zeros((1, h, w, 3), np.uint8)
+    handle = lib.w2t_decoder_create(1)
+    try:
+        ok = lib.w2t_decode_batch_scaled(
+            handle, 1, (ctypes.c_char_p * 1)(blob), (ctypes.c_size_t * 1)(len(blob)),
+            out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), h * w * 3, h, w, 1, 1)
+    finally:
+        lib.w2t_decoder_destroy(handle)
+    got = hashlib.sha256(out.tobytes()).hexdigest()
+    if ok != 1 or got != probe["decoded_sha256"]:
+        raise RuntimeError(
+            f"the JPEG shim {_native.lib_path('w2t_jpeg')} does not decode the probe "
+            f"{probe['file']} to its committed bytes (decoded {ok} of 1, SHA-256 {got[:16]} "
+            f"against {probe['decoded_sha256'][:16]}): its libjpeg headers and library "
+            "disagree")
+
+
+def _configure_checked(lib: ctypes.CDLL) -> None:
+    _configure(lib)
+    _check_probe(lib)
+
+
 def _load() -> ctypes.CDLL:
-    return _native.load("w2t_jpeg", _configure)
+    return _native.load("w2t_jpeg", _configure_checked)
 
 
 def jpeg_dims(blob: bytes) -> Tuple[int, int]:

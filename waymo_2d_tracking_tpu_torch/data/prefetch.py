@@ -23,7 +23,8 @@ stream.
 Lifecycle: ``close()`` (or leaving the ``with`` block) unblocks and joins the
 worker, which closes the source iterator in its own thread (running the
 source generator's ``finally``). An exception in the worker or the source is
-raised on the consumer's side. Chunks are numpy arrays.
+raised on the consumer's side. Chunks are numpy arrays, or dicts of them
+(training batches), which arrive as dicts of tensors.
 """
 from __future__ import annotations
 
@@ -42,7 +43,8 @@ _SENTINEL = object()
 class DevicePrefetcher:
     """Iterate host chunks; yield them on ``device``, copied ahead.
 
-    produce: iterable of numpy arrays (e.g. repeat-padded uint8 frame chunks).
+    produce: iterable of numpy arrays (e.g. repeat-padded uint8 frame chunks)
+      or of dicts of numpy arrays.
     depth: chunks staged ahead (2 = double buffering).
     transform: optional host-side function applied in the worker thread
       before the copy.
@@ -69,23 +71,29 @@ class DevicePrefetcher:
         self._thread.start()
 
     def _to_device(self, item):
-        host = torch.from_numpy(np.ascontiguousarray(item))
+        """A numpy array, or a dict of them (a training batch), on the
+        device; on the card (tensors, event behind their copies)."""
+        arrays = item if isinstance(item, dict) else {None: item}
+        host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()}
         if not self._cuda:
-            return host
+            return host if isinstance(item, dict) else host[None]
         slot = self._ring[self._slot]
         self._slot = (self._slot + 1) % len(self._ring)
-        buf, done = slot
+        bufs, done = slot
         if done is not None:
-            done.synchronize()          # its last copy has left the buffer
-        if buf is None or buf.shape != host.shape or buf.dtype != host.dtype:
-            buf = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
-        buf.copy_(host)
+            done.synchronize()          # its last copy has left the buffers
+        bufs = dict(bufs or {})
+        for k, h in host.items():
+            buf = bufs.get(k)
+            if buf is None or buf.shape != h.shape or buf.dtype != h.dtype:
+                bufs[k] = torch.empty(h.shape, dtype=h.dtype, pin_memory=True)
+            bufs[k].copy_(h)
         with torch.cuda.stream(self._stream):
-            dev = buf.to(self.device, non_blocking=True)
+            dev = {k: bufs[k].to(self.device, non_blocking=True) for k in host}
             ready = torch.cuda.Event()
             ready.record(self._stream)
-        slot[0], slot[1] = buf, ready
-        return dev, ready
+        slot[0], slot[1] = bufs, ready
+        return (dev if isinstance(item, dict) else dev[None]), ready
 
     def _worker(self, it: Iterator):
         try:
@@ -153,7 +161,8 @@ class DevicePrefetcher:
                 item, ready = item
                 stream = torch.cuda.current_stream(self.device)
                 stream.wait_event(ready)
-                item.record_stream(stream)
+                for t in (item.values() if isinstance(item, dict) else (item,)):
+                    t.record_stream(stream)
             yield item
 
 

@@ -43,6 +43,10 @@ from waymo_2d_tracking_tpu_torch.types import Detections
 # class-agnostic NMS pass never cross-suppresses
 _CLASS_NMS_OFFSET = 1e5
 
+# standard deviation of a unit normal truncated to [-2, 2] (flax's
+# variance_scaling divides by it)
+_TRUNC_STD = 0.87962566103423978
+
 _BACKBONES = {
     "resnet18": resnet_mod.ResNet18,
     "resnet34": resnet_mod.ResNet34,
@@ -79,14 +83,15 @@ class Detector(nn.Module):
     ``quant_scope='all'``; the predictor convs stay float, as in the JAX
     package."""
 
-    def __init__(self, cfg: DetectorConfig):
+    def __init__(self, cfg: DetectorConfig, remat: bool = False):
         super().__init__()
         if cfg.backbone not in _BACKBONES:
             raise ValueError(f"unknown backbone {cfg.backbone}")
         self.cfg = cfg
         dtype = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
         head_quant = cfg.quant if cfg.quant_scope == "all" else "off"
-        self.backbone = _BACKBONES[cfg.backbone](stem=cfg.stem, quant=cfg.quant, dtype=dtype)
+        self.backbone = _BACKBONES[cfg.backbone](stem=cfg.stem, quant=cfg.quant, dtype=dtype,
+                                                 remat=remat)
         self.fpn = FPN(self.backbone.out_channels, cfg.fpn_channels, cfg.fpn_levels,
                        quant=cfg.quant, dtype=dtype)
         head_channels = cfg.head_channels or cfg.fpn_channels
@@ -116,15 +121,38 @@ class Detector(nn.Module):
         """ReID embeddings for RoIAligned features (R, P, P, C) -> (R, E)."""
         return self.reid(pooled)
 
+    def forward_train(self, images: torch.Tensor, rois: Optional[torch.Tensor] = None):
+        """Training forward (the module in train mode): head outputs, and the
+        ReID embeddings (N, G, E) of the padded GT boxes ``rois`` (N, G, 4)
+        pooled exactly as at inference (``_pool_reid_features``, the matmul
+        form, differentiable), or None."""
+        head_out, p_feats = self(images)
+        embeds = None
+        if rois is not None and self.cfg.embed_dim > 0:
+            pooled = _pool_reid_features(p_feats, rois, self.cfg)
+            n, g = rois.shape[:2]
+            embeds = self.reid(pooled.reshape((n * g,) + pooled.shape[2:])).reshape(n, g, -1)
+        return head_out, embeds
+
     @torch.no_grad()
-    def init_weights(self, generator: torch.Generator) -> None:
-        """Seeded random init in the spirit of the flax defaults: LeCun-normal
-        conv / dense kernels, zero biases, unit norms, the focal prior bias
-        (-4.595) on the class or heat logits and unit per-level scales."""
+    def init_weights(self, generator: torch.Generator, truncated: bool = False) -> None:
+        """Seeded random init with flax's defaults, module by module (the JAX
+        package's ``Detector.init_all``): conv and Dense kernels LeCun normal
+        (variance 1 / fan_in), zero biases, unit BatchNorm / GroupNorm scales
+        and per-level FCOS scales, and the focal prior bias (-4.595) on the
+        class or heat logits (BatchNorm statistics keep their constructed 0
+        and 1). ``truncated`` (training's ``create_state``) draws the kernels
+        as flax's ``lecun_normal`` does, a normal truncated at two standard
+        deviations and rescaled; the serving paths' random weights keep their
+        plain normal draws, whose outputs earlier measurements rest on."""
         for name, p in self.named_parameters():
             if name.endswith("weight") and p.dim() > 1:
                 fan_in = p[0].numel()
-                p.copy_(torch.randn(p.shape, generator=generator) / math.sqrt(fan_in))
+                if truncated:
+                    nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0, generator=generator)
+                    p.mul_(math.sqrt(1.0 / fan_in) / _TRUNC_STD)
+                else:
+                    p.copy_(torch.randn(p.shape, generator=generator) / math.sqrt(fan_in))
             elif name.endswith("weight") or ".scale" in name:
                 p.fill_(1.0)
             else:

@@ -14,8 +14,10 @@ from waymo_2d_tracking_tpu_torch.models.quant import make_conv
 
 
 def nearest_upsample_2x(x: torch.Tensor) -> torch.Tensor:
-    """(N, C, H, W) -> (N, C, 2H, 2W), nearest neighbour."""
-    return x.repeat_interleave(2, dim=2).repeat_interleave(2, dim=3)
+    """(N, C, H, W) -> (N, C, 2H, 2W), nearest neighbour, by a broadcast as
+    in the JAX module (its backward is a sum, with no scattered adds)."""
+    n, c, h, w = x.shape
+    return x[:, :, :, None, :, None].expand(n, c, h, 2, w, 2).reshape(n, c, 2 * h, 2 * w)
 
 
 class FPN(nn.Module):

@@ -11,21 +11,82 @@ Every conv comes from ``models/quant.py make_conv``: ``quant='off'`` is a
 plain ``nn.Conv2d``, ``'calib'`` / ``'int8'`` the w8a8 ``QuantConv2d``
 (``dtype``: the config's compute dtype).
 
+Training (``train/train.py``) runs the modules in train mode: ``BatchNorm2d``
+is flax's ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` there, and
+``remat=True`` recomputes each residual block in the backward pass (flax's
+per-block ``nn.remat``) with ``torch.utils.checkpoint``.
+
 Returns the C2..C5 features {2: /4, 3: /8, 4: /16, 5: /32}, NCHW.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Dict, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from waymo_2d_tracking_tpu_torch.models.quant import make_conv
 
+BN_MOMENTUM = 0.9     # flax's decay of the running statistics
+BN_EPS = 1e-5
 
-def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5)
+_REMAT = threading.local()   # .recomputing: inside a remat block's recompute
+
+
+@contextlib.contextmanager
+def _recomputing():
+    prev = getattr(_REMAT, "recomputing", False)
+    _REMAT.recomputing = True
+    try:
+        yield
+    finally:
+        _REMAT.recomputing = prev
+
+
+def _remat_contexts():
+    """``checkpoint``'s ``context_fn``: nothing around the forward, the
+    recompute flagged (in the thread that runs it) so that BatchNorm does not
+    update its running statistics a second time."""
+    return contextlib.nullcontext(), _recomputing()
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm with flax's train-mode semantics; eval mode is
+    ``nn.BatchNorm2d``'s, unchanged.
+
+    In train mode the statistics are computed in float32 whatever the input
+    dtype (flax promotes them), the variance is the biased one, as
+    E[x^2] - E[x]^2 clipped at 0 (flax's fast variance), the output is
+    ``(x - mean) * (rsqrt(var + eps) * weight) + bias`` in float32 cast back
+    to the input dtype, and the running statistics become
+    ``0.9 * running + 0.1 * batch`` (flax's momentum is torch's 1 - momentum,
+    and torch would fold in the unbiased variance). Under remat the
+    recompute leaves them alone."""
+
+    def __init__(self, c: int):
+        super().__init__(c, eps=BN_EPS)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        if not getattr(_REMAT, "recomputing", False):
+            with torch.no_grad():
+                self.running_mean.mul_(BN_MOMENTUM).add_(mean.detach() * (1.0 - BN_MOMENTUM))
+                self.running_var.mul_(BN_MOMENTUM).add_(var.detach() * (1.0 - BN_MOMENTUM))
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[None, :, None, None]) * mul[None, :, None, None] + self.bias[None, :, None, None]
+        return y.to(x.dtype)
+
+
+def _bn(c: int) -> BatchNorm2d:
+    return BatchNorm2d(c)
 
 
 class Bottleneck(nn.Module):
@@ -102,13 +163,16 @@ class ResNet(nn.Module):
     stem='conv7' is the 7x7/s2 stem; stem='s2d' is the weight-equivalent
     space-to-depth 4x4/s1 form, padded (2, 1) on both axes like the JAX
     module (asymmetric, so the pad is explicit and the conv has none).
+    ``remat`` (training only): each residual block is recomputed in the
+    backward pass instead of keeping its activations.
     """
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3), width: int = 64,
                  block: str = "bottleneck", stem: str = "conv7", quant: str = "off",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat: bool = False):
         super().__init__()
         self.stem = stem
+        self.remat = remat
         if stem == "s2d":
             self.stem_conv = make_conv(quant, 12, width, 4, 1, bias=False, dtype=dtype)
         else:
@@ -141,7 +205,11 @@ class ResNet(nn.Module):
         feats: Dict[int, torch.Tensor] = {}
         for stage, names in enumerate(self.stage_names):
             for name in names:
-                x = getattr(self, name)(x)
+                block = getattr(self, name)
+                if self.remat and self.training and torch.is_grad_enabled():
+                    x = checkpoint(block, x, use_reentrant=False, context_fn=_remat_contexts)
+                else:
+                    x = block(x)
             feats[stage + 2] = x
         return feats
 

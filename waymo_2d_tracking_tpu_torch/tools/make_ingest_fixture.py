@@ -10,9 +10,11 @@ JPEG-encoded with Pillow at the highest quality (from 90 down in steps of 5)
 that keeps the file under ``MAX_BYTES``. Beside it,
 ``fixtures/ingest_fixture.json`` records the quality, the SHA-256 of each
 frame's JPEG bytes and of its decode by the port's ``BatchJpegDecoder`` at
-denom 1 and 2 (libjpeg's DCT-scaled decode), and the libjpeg that decoded
-them. Needs Pillow (for the encoder; the port's sources import no cv2) and a
-libjpeg for the decoder shim.
+denom 1, 2 and 4 (libjpeg's DCT-scaled decode), and the libjpeg that decoded
+them. It also writes ``fixtures/jpeg_probe.jpg``, a 24x40 JPEG of a few
+hundred bytes with 4:2:0 chroma, and the SHA-256 of its decode: the decoder
+checks a freshly loaded shim against it. Needs Pillow (for the encoder; the
+port's sources import no cv2) and a libjpeg for the decoder shim.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ MAX_BYTES = 1_900_000
 CONTEXT = "ingest_fixture_seed5"
 NUM_FRAMES = 16
 FRAME_PERIOD_US = 100_000      # 10 Hz, as Waymo segments
+PROBE_HW = (24, 40)
 
 
 def render_frames():
@@ -59,6 +62,20 @@ def encode_jpeg(frame, quality: int) -> bytes:
     return buf.getvalue()
 
 
+def probe_image():
+    """A smooth gradient with three coloured blocks: chroma upsampling and
+    the IDCT both show in its bytes."""
+    import numpy as np
+
+    h, w = PROBE_HW
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = np.stack([xx * 255 // (w - 1), yy * 255 // (h - 1), (xx + yy) * 4 % 256], -1)
+    img[4:12, 4:14] = (220, 30, 40)
+    img[10:20, 18:30] = (20, 200, 60)
+    img[2:9, 30:38] = (30, 40, 230)
+    return img.astype(np.uint8)
+
+
 def main() -> int:
     import PIL
 
@@ -78,11 +95,17 @@ def main() -> int:
             break
     sha = lambda b: hashlib.sha256(b).hexdigest()   # noqa: E731
     decoded = {}
-    for denom in (1, 2):
+    for denom in (1, 2, 4):
         h, w = (-(-s // denom) for s in frames.shape[1:3])
         dec = BatchJpegDecoder(h, w, scale_denom=denom)
         decoded[str(denom)] = [sha(a.tobytes()) for a in dec.decode(jpegs)]
         dec.close()
+    probe = encode_jpeg(probe_image(), 75)
+    with open(os.path.join(FIXTURES_DIR, "jpeg_probe.jpg"), "wb") as f:
+        f.write(probe)
+    dec = BatchJpegDecoder(*PROBE_HW)
+    probe_decoded = sha(dec.decode([probe])[0].tobytes())
+    dec.close()
     meta = {
         "tfrecord": os.path.relpath(path, ROOT),
         "bytes": os.path.getsize(path),
@@ -97,6 +120,8 @@ def main() -> int:
         "jpeg_sha256": [sha(j) for j in jpegs],
         "decoded_sha256": decoded,
         "decoded_by": shim_libjpeg(),
+        "probe": {"file": "jpeg_probe.jpg", "height_width": list(PROBE_HW),
+                  "jpeg_sha256": sha(probe), "decoded_sha256": probe_decoded},
     }
     with open(os.path.join(FIXTURES_DIR, "ingest_fixture.json"), "w") as f:
         json.dump(meta, f, indent=1)
