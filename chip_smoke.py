@@ -117,17 +117,43 @@ T. training (``train/train.py``): T1 one ``train_step`` at the tiny parity
    peak memory, the loss, a forward / loss / backward / optimizer split by
    CUDA events and one traced step's busy share and top kernels.
 
+S. the serving daemon (``cli serve`` in a thread, on AF_UNIX sockets in
+   ``scratch_dir()``; every reply checked for ``ok: true``): S1 the
+   trained fixture (slim, f32) with the seed-5 clip as raw payloads, bit-equal
+   to phase 2's direct ``OnlineTracker`` and so its golden metrics; S2 the
+   headline at full width (640x960 raw, seeded weights, gates lowered): 64
+   frames bit-equal to a direct session, 1 NMS and 2 auction launches a
+   frame, latency through the socket beside the direct session's, a snapshot
+   after frame 8 restored into a second server traced with ``--profile``
+   (both kernels' names in the trace) and a ``--state-file`` restart, each
+   continuing as the uninterrupted run, and the ingest fixture's 1280x1920
+   JPEGs through a ``headline_denom2`` server warmed with ``--warmup 1280
+   1920``; S3 ``serve --multicam`` at config 4, 8 rig ticks of five 1280x1920
+   raw frames equal to a direct ``OnlineMultiCamTracker``.
+C. the command line on the card: ``track --segments-dir`` on the ingest
+   TFRecord against ``run_segments``, ``track --online``, ``detect``;
+   ``draw`` into JPEGs and an MJPG video, and ``track --video`` on that
+   video against a direct ``OnlineTracker``; ``tune --trials 4`` on the
+   card, with 2 workers and on the CPU; ``export --platform cuda`` reloaded
+   against ``DetectorRunner.detect``; ``--compile-cache`` (a second process
+   runs no ``nvcc``); ``doctor``. Each verb's launches are counted around
+   that verb alone.
+
 The last two lines are the kernels' JSON record and the device record. It
 imports no JAX, nothing of the JAX package and no cv2.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 # configs/headline.yaml, as a dict (the card machine need not have pyyaml);
@@ -1015,7 +1041,8 @@ def phase_fixtures(np, torch, nms, assign):
     log(f"[2] kernel launches in the fixture phase: nms {launches[0]}, auction {launches[1]}")
     if min(launches) == 0:
         raise AssertionError("a kernel did not run in the fixture phase")
-    return {"seed5": m5.as_dict(), "dense": md.as_dict()}
+    return {"seed5": m5.as_dict(), "dense": md.as_dict(),
+            "online": {"cfg": cfg, "frames": frames5, "records": online, "gt": gt5}}
 
 
 def phase_fixtures_int8(np, torch, run, config, seed5, dense, frames5, gt5, sd):
@@ -1701,6 +1728,10 @@ def phase_new_paths(np, torch, counters, card, headline_frames):
     if counters["auction"].last_shape != (5, 128) or counters["nms_mask"].last_shape[0] != 5:
         raise AssertionError("online_rig: the tick's launches are not one rig-wide launch")
     del rig
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths["serve_rig"] = phase_serve_rig(np, torch, counters, card, frames)
+    log(f"[S3] done in {time.perf_counter() - t0:.1f} s")
     del frames
     torch.cuda.empty_cache()
 
@@ -1711,6 +1742,534 @@ def phase_new_paths(np, torch, counters, card, headline_frames):
                                             headline_frames, 64,
                                             {"nms_mask": 1, "auction": stages_of(cfg)})
     return paths
+
+
+# ----------------------------------------------------------------- phase S
+
+def write_config(cfg, name: str) -> str:
+    """``cfg`` as a yaml preset for the port's ``--config``, under the
+    scratch directory."""
+    import yaml
+
+    path = os.path.join(scratch_dir(), name)
+    with open(path, "w") as f:
+        yaml.safe_dump(dataclasses.asdict(cfg), f)
+    return path
+
+
+def short_path(name: str) -> str:
+    """A path under the scratch directory, relative to the working directory
+    when that is shorter (an AF_UNIX path has at most 107 bytes)."""
+    path = os.path.join(scratch_dir(), name)
+    rel = os.path.relpath(path)
+    return rel if len(rel) < len(path) else path
+
+
+class Serving:
+    """``cli.main(["serve", "--socket", sock, *argv])`` in a thread: entered
+    when the socket exists (after the warm-up), left when the server has
+    ended; an exception of the server's is raised on exit."""
+
+    def __init__(self, sock: str, argv):
+        self.sock, self.argv, self.error = sock, list(argv), None
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        from waymo_2d_tracking_tpu_torch import cli
+
+        try:
+            cli.main(["serve", "--socket", self.sock] + self.argv)
+        except BaseException as e:   # handed to the main thread on exit
+            self.error = e
+
+    def __enter__(self):
+        self.thread.start()
+        while not os.path.exists(self.sock):
+            if not self.thread.is_alive():
+                raise RuntimeError(f"serve ended before binding: {self.error!r}")
+            time.sleep(0.02)
+        return self
+
+    def __exit__(self, *exc):
+        self.thread.join(timeout=120)
+        if self.thread.is_alive():
+            raise RuntimeError("serve did not end after close")
+        if self.error is not None and exc[0] is None:
+            raise self.error
+
+
+def served_step(client, frame, ts):
+    """One frame through the socket; the reply must say ok true."""
+    reply = client.step(frame, timestamp_micros=ts)
+    if reply.get("ok") is not True:
+        raise AssertionError(f"server reply not ok: {reply}")
+    return reply
+
+
+def record_dicts(records):
+    return [dataclasses.asdict(r) for r in records]
+
+
+def percentiles(ms):
+    return {f"p{q}_ms": round(float(statistics.quantiles(ms, n=100)[q - 1]), 3)
+            for q in (50, 90, 99)} if len(ms) > 1 else {}
+
+
+def phase_serve_fixture(np, torch, counters, card, fixture):
+    """S1: the trained fixture (slim, f32) behind ``serve`` on an AF_UNIX
+    socket, the seed-5 clip sent as raw payloads: the records equal phase
+    2's direct ``OnlineTracker`` records bit for bit, hence its metrics."""
+    from waymo_2d_tracking_tpu_torch.eval.mot import evaluate_mot, gt_to_frames
+    from waymo_2d_tracking_tpu_torch.io_out.submission import TrackRecord
+    from waymo_2d_tracking_tpu_torch.pipeline.server import TrackingClient
+    from waymo_2d_tracking_tpu_torch.weights import FIXTURES_DIR
+
+    cfg, frames, direct, gt = (fixture[k] for k in ("cfg", "frames", "records", "gt"))
+    sock = short_path("s1.sock")
+    h, w = frames.shape[1:3]
+    argv = ["--config", write_config(cfg, "s1.yaml"),
+            "--params", os.path.join(FIXTURES_DIR, "pixels_detector.npz"),
+            "--warmup", str(h), str(w)]
+    served = []
+    with Serving(sock, argv):
+        zero_counts(counters)
+        with TrackingClient(socket_path=sock) as c:
+            c.reset(context_name="fixture")
+            for t in range(frames.shape[0]):
+                served.extend(served_step(c, frames[t], t)["records"])
+            stats = c.stats()
+            c.close_server()
+    counts = read_counts(counters)
+    if served != record_dicts(direct):
+        raise AssertionError("S1: the records served differ from the direct OnlineTracker's")
+    m = evaluate_mot(gt_to_frames(gt), records_to_frames(
+        np, [TrackRecord(**r) for r in served], frames.shape[0])).as_dict()
+    got = {k: (round(m[k], 4) if isinstance(m[k], float) else m[k])
+           for k in FIXTURE_GOLDEN["seed5"]}
+    log(f"[S1] serve (fixture, f32, {h}x{w} raw payloads over AF_UNIX, {card}): "
+        f"{frames.shape[0]} frames, {len(served)} records bit-equal to the direct session's; "
+        f"metrics {json.dumps(got)} (golden {json.dumps(FIXTURE_GOLDEN['seed5'])}); server "
+        f"latency {json.dumps(stats['stats'])}; launches {json.dumps(counts)}")
+    if got != FIXTURE_GOLDEN["seed5"]:
+        raise AssertionError(f"S1: served metrics {got} differ from the golden")
+    n = frames.shape[0]
+    if counts["nms_mask"] != n or counts["auction"] != n * stages_of(cfg):
+        raise AssertionError(f"S1: expected {n} NMS and {n * stages_of(cfg)} auction launches")
+    return counts
+
+
+def gated(preset):
+    """A preset with the tracker gates lowered for seeded random weights, as
+    phase 2b does."""
+    from waymo_2d_tracking_tpu_torch.config import Config, _update
+
+    return _update(Config(), {**preset, "tracker": {**CONFIG4_RANDOM_WEIGHT_GATES,
+                                                     **preset.get("tracker", {})}})
+
+
+def find_trace_names(trace_dir, names):
+    """Which of ``names`` occur in the Chrome traces under ``trace_dir``."""
+    found = set()
+    for f in os.listdir(trace_dir):
+        with open(os.path.join(trace_dir, f)) as fh:
+            text = fh.read()
+        found |= {n for n in names if n in text}
+    return found
+
+
+def phase_serve_headline(np, torch, counters, card, frames):
+    """S2: the headline at full width (640x960 raw frames, seeded weights,
+    gates lowered): 64 frames through the socket bit-equal to a direct
+    ``OnlineTracker``, 1 NMS and 2 auction launches a served frame, latency
+    through the socket beside the direct session's; a snapshot after frame 8
+    restored into a second server (traced with ``--profile``) and a restart
+    through ``--state-file`` each continuing exactly as the uninterrupted
+    run; the ingest fixture's 1280x1920 JPEGs through a ``headline_denom2``
+    server warmed with ``--warmup 1280 1920``."""
+    from waymo_2d_tracking_tpu_torch.config import _update
+    from waymo_2d_tracking_tpu_torch.data import waymo
+    from waymo_2d_tracking_tpu_torch.pipeline.online import OnlineTracker
+    from waymo_2d_tracking_tpu_torch.pipeline.server import TrackingClient
+    from waymo_2d_tracking_tpu_torch.weights import FIXTURES_DIR
+
+    n, cut = 64, 8
+    cfg = gated({**HEADLINE, "pipeline": {**HEADLINE["pipeline"], "decode_scale_denom": 1}})
+    conf = write_config(cfg, "s2.yaml")
+    hw = [str(v) for v in frames.shape[1:3]]
+    sess = OnlineTracker(cfg, device="cuda", seed=0)
+    sess.warmup(tuple(frames.shape[1:3]))
+    direct = [record_dicts(sess.step(frames[t], t)) for t in range(n)]
+    direct_lat = sess.latency_stats()
+    sess.close()
+    del sess
+
+    sock = short_path("s2.sock")
+    served, rtt = [], []
+    with Serving(sock, ["--config", conf, "--warmup", *hw]):
+        zero_counts(counters)
+        with TrackingClient(socket_path=sock) as c:
+            for t in range(n):
+                t0 = time.perf_counter()
+                served.append(served_step(c, frames[t], t)["records"])
+                rtt.append((time.perf_counter() - t0) * 1e3)
+                if t == cut - 1:
+                    snap = c.snapshot()
+            counts = read_counts(counters)
+            server_lat = c.stats()["stats"]
+            c.close_server()
+    if served != direct:
+        bad = next(t for t in range(n) if served[t] != direct[t])
+        raise AssertionError(f"S2: served records differ from the direct session at frame {bad}")
+    if counts["nms_mask"] != n or counts["auction"] != n * stages_of(cfg):
+        raise AssertionError(f"S2: expected 1 NMS and {stages_of(cfg)} auction launches a "
+                             f"frame, got {counts} over {n} frames")
+    log(f"[S2] serve headline (640x960 raw, bf16, seeded weights, gates lowered; {card}): "
+        f"{n} frames bit-equal to the direct OnlineTracker, {sum(map(len, served))} records; "
+        f"launches {json.dumps(counts)} ({counts['nms_mask'] / n:g} NMS, "
+        f"{counts['auction'] / n:g} auction a frame); latency through the socket (client round "
+        f"trip, {n} frames incl. the first) {json.dumps(percentiles(rtt))}, server-side "
+        f"{latency_text(server_lat)}; direct session {latency_text(direct_lat)}")
+
+    # failover: the snapshot after frame 8 into a second server, traced
+    trace_dir = os.path.join(scratch_dir(), "s2_trace")
+    sock_b = short_path("s2b.sock")
+    with Serving(sock_b, ["--config", conf, "--warmup", *hw, "--profile", trace_dir]):
+        with TrackingClient(socket_path=sock_b) as c:
+            c.restore(snap["blob"], context_name=snap["context_name"])
+            cont = [served_step(c, frames[t], t)["records"] for t in range(cut, 2 * cut)]
+            c.close_server()
+    if cont != direct[cut:2 * cut]:
+        raise AssertionError("S2: the restored server's continuation differs")
+    names = find_trace_names(trace_dir, ("nms_mask_kernel", "auction_kernel"))
+    if names != {"nms_mask_kernel", "auction_kernel"}:
+        raise AssertionError(f"S2: the --profile trace holds {sorted(names)} of the two kernels")
+
+    # planned restart: --state-file written at exit, restored at the next start
+    state_file = os.path.join(scratch_dir(), "s2.state")
+    if os.path.exists(state_file):
+        os.unlink(state_file)
+    sock_c = short_path("s2c.sock")
+    with Serving(sock_c, ["--config", conf, "--warmup", *hw, "--state-file", state_file]):
+        with TrackingClient(socket_path=sock_c) as c:
+            for t in range(cut):
+                served_step(c, frames[t], t)
+            c.close_server()
+    with Serving(sock_c, ["--config", conf, "--warmup", *hw, "--state-file", state_file]):
+        with TrackingClient(socket_path=sock_c) as c:
+            again = [served_step(c, frames[t], t)["records"] for t in range(cut, 2 * cut)]
+            c.close_server()
+    if again != direct[cut:2 * cut]:
+        raise AssertionError("S2: the restarted server's continuation differs")
+    log(f"[S2] snapshot after frame {cut} restored into a second server, and a restart through "
+        f"--state-file: frames {cut}-{2 * cut - 1} bit-equal to the uninterrupted run; the "
+        f"restored server's --profile trace names both kernels {sorted(names)}")
+
+    # compressed payloads: the ingest fixture's JPEGs at the shipped denom 2
+    cfg2 = gated(HEADLINE)
+    fixture = json.load(open(os.path.join(FIXTURES_DIR, "ingest_fixture.json")))
+    (seg,) = [s for s in waymo.iter_segments(FIXTURES_DIR)
+              if s.context_name == fixture["context_name"]]
+    blobs = seg.jpeg_frames[0:seg.num_frames]
+    sess = OnlineTracker(cfg2, device="cuda", seed=0)
+    direct2 = [record_dicts(sess.step(b, t)) for t, b in enumerate(blobs)]
+    sess.close()
+    sock_d = short_path("s2d.sock")
+    zero_counts(counters)
+    with Serving(sock_d, ["--config", write_config(cfg2, "s2_denom2.yaml"),
+                          "--warmup", "1280", "1920"]):
+        with TrackingClient(socket_path=sock_d) as c:
+            served2 = [served_step(c, b, t)["records"] for t, b in enumerate(blobs)]
+            jpeg_lat = c.stats()["stats"]
+            c.close_server()
+    if served2 != direct2 or not any(served2):
+        raise AssertionError("S2: JPEG payloads through the denom-2 server differ from the "
+                             "direct session")
+    log(f"[S2] headline_denom2 server (--warmup 1280 1920) on the {len(blobs)} ingest JPEGs "
+        f"(1280x1920): {sum(map(len, served2))} records bit-equal to the direct session on the "
+        f"same bytes; server-side latency {latency_text(jpeg_lat)}")
+    return counts
+
+
+def phase_serve_rig(np, torch, counters, card, frames, ticks=8):
+    """S3: ``serve --multicam`` at config 4 (5 cameras of 1280x1920 raw as
+    [5, H, W, 3]), ``ticks`` ticks equal to a direct
+    ``OnlineMultiCamTracker``."""
+    from waymo_2d_tracking_tpu_torch.pipeline.online import OnlineMultiCamTracker
+    from waymo_2d_tracking_tpu_torch.pipeline.server import TrackingClient
+
+    cfg = gated(CONFIG4)
+    cams = len(cfg.pipeline.cameras)
+    hw = [str(v) for v in frames.shape[2:4]]
+    rig = OnlineMultiCamTracker(cfg, camera_names=list(range(1, cams + 1)), device="cuda", seed=0)
+    rig.warmup(tuple(frames.shape[2:4]))
+    direct = [record_dicts(rig.step(list(frames[t]), t)) for t in range(ticks)]
+    rig.close()
+    del rig
+    sock = short_path("s3.sock")
+    with Serving(sock, ["--config", write_config(cfg, "s3.yaml"), "--multicam",
+                        "--warmup", *hw]):
+        zero_counts(counters)
+        with TrackingClient(socket_path=sock) as c:
+            served = [served_step(c, list(frames[t]), t)["records"] for t in range(ticks)]
+            counts = read_counts(counters)
+            lat = c.stats()["stats"]
+            c.close_server()
+    if served != direct or not any(served):
+        raise AssertionError("S3: the rig server's records differ from the direct session")
+    if counts["nms_mask"] != ticks or counts["auction"] != ticks * stages_of(cfg):
+        raise AssertionError(f"S3: expected one NMS and {stages_of(cfg)} auction launch a "
+                             f"tick, got {counts}")
+    log(f"[S3] serve --multicam at config 4 ({cams} cameras x {hw[0]}x{hw[1]} raw, "
+        f"{ticks} ticks; {card}): records bit-equal to the direct OnlineMultiCamTracker "
+        f"({sum(map(len, served))}); launches {json.dumps(counts)}; server-side latency a tick "
+        f"{latency_text(lat)}")
+    return counts
+
+
+# ----------------------------------------------------------------- phase C
+
+def cli_quiet(argv):
+    """``cli.main(argv)`` with its standard output captured; returns (code,
+    the output's lines)."""
+    from waymo_2d_tracking_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        code = cli.main(argv)
+    return code, buf.getvalue().splitlines()
+
+
+def same_report(a, b) -> bool:
+    """Two ``tune`` reports agree: trials, knobs, counts and ratios exactly,
+    MOTP within 1e-6."""
+    if {k: a[k] for k in ("objective", "trials", "seed", "best_overrides")} != \
+            {k: b[k] for k in ("objective", "trials", "seed", "best_overrides")}:
+        return False
+    keys = ("trial", "knobs", "records", "mota", "idf1", "num_idsw", "num_fp", "num_fn")
+    return all({k: x[k] for k in keys} == {k: y[k] for k in keys}
+               and abs(x["motp"] - y["motp"]) <= 1e-6
+               for x, y in zip(a["results"], b["results"])) \
+        and len(a["results"]) == len(b["results"])
+
+
+def phase_cli(np, torch, counters, card, fixture, frames):
+    """C: the port's command line on the card. ``track --segments-dir`` on
+    the ingest TFRecord (``headline_denom2``) against ``run_segments``
+    called directly, ``track --online`` and ``detect`` on it; ``draw`` of
+    those tracks into JPEGs and an MJPG video, and ``track --video`` on that
+    video against a direct ``OnlineTracker`` on its frames; ``tune
+    --trials 4`` on the fixture clip's detections, the same report on the
+    card and with ``--workers 2``, the same trials and knobs with ``--device
+    cpu`` and each trial's agreement with it reported; ``export
+    --platform cuda`` loaded again against ``DetectorRunner.detect``;
+    ``--compile-cache DIR`` (a second process runs no ``nvcc``);
+    ``doctor``. Each verb's launches are counted from 0 around that verb
+    alone (and the exported program's around its call); the direct runs
+    they are compared with run outside those windows. Returns the launches
+    summed over the verbs."""
+    from waymo_2d_tracking_tpu_torch.data import waymo
+    from waymo_2d_tracking_tpu_torch.data.preprocess import letterbox_batch
+    from waymo_2d_tracking_tpu_torch.data.video import iter_video_frames
+    from waymo_2d_tracking_tpu_torch.io_out import submission as subm
+    from waymo_2d_tracking_tpu_torch.io_out.export import load_program, OUTPUTS
+    from waymo_2d_tracking_tpu_torch.io_out.postprocess import interpolate_gaps
+    from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
+    from waymo_2d_tracking_tpu_torch.pipeline.online import OnlineTracker
+    from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentFrames, SegmentPipeline, run_segments
+    from waymo_2d_tracking_tpu_torch.weights import FIXTURES_DIR, fixture_state_dict
+
+    work = os.path.join(scratch_dir(), "cli")
+    if os.path.isdir(work):
+        import shutil
+
+        shutil.rmtree(work)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    verbs = {}
+
+    def verb(name, argv):
+        """One verb, the counts zeroed just before it and read just after."""
+        zero_counts(counters)
+        code, out = cli_quiet(argv)
+        verbs[name] = read_counts(counters)
+        if code not in (None, 0):
+            raise AssertionError(f"C: {name} exited {code}")
+        return out
+
+    cfg = gated(HEADLINE)
+    conf = write_config(cfg, "c_headline.yaml")
+    verb("track", ["track", "--segments-dir", FIXTURES_DIR, "--out-dir", f"{work}/track",
+                   "--config", conf])
+    run_segments(SegmentPipeline(cfg, device="cuda", seed=0),
+                 waymo.iter_segments(FIXTURES_DIR, cameras=cfg.pipeline.cameras),
+                 f"{work}/direct")
+    files = sorted(f for f in os.listdir(f"{work}/direct") if f.endswith(".jsonl")
+                   and f != "manifest.jsonl")
+    for f in files:
+        if open(f"{work}/track/{f}").read() != open(f"{work}/direct/{f}").read():
+            raise AssertionError(f"C: track --segments-dir {f} differs from run_segments")
+    online = json.loads(verb("track --online", [
+        "track", "--online", "--segments-dir", FIXTURES_DIR, "--out-dir", f"{work}/online",
+        "--config", conf])[-1])
+    det = json.loads(verb("detect", ["detect", "--segments-dir", FIXTURES_DIR, "--out",
+                                     f"{work}/det.jsonl", "--config", conf])[-1])
+    n_track = sum(len(subm.read_jsonl(f"{work}/track/{f}")) for f in files)
+    if not (files and n_track and online["records"] and det["records"]):
+        raise AssertionError("C: track / track --online / detect wrote no records")
+    log(f"[C] track --segments-dir (the ingest TFRecord, headline_denom2): {files} equal to "
+        f"run_segments byte for byte ({n_track} records); track --online {online['records']} "
+        f"records, latency {latency_text(online['latency'])}; detect {det['records']} "
+        f"detections ({card})")
+
+    # draw (OpenCV) the tracks into JPEGs and a video, then track that video
+    video = f"{work}/drawn.avi"
+    drawn = json.loads(verb("draw", ["draw", "--tracks", f"{work}/track/{files[0]}",
+                                     "--segments-dir", FIXTURES_DIR, "--out-dir",
+                                     f"{work}/draw", "--video", video, "--config", conf])[-1])
+    jpegs = [f for f in os.listdir(f"{work}/draw") if f.endswith(".jpg")]
+    tracked = json.loads(verb("track --video", ["track", "--video", video, "--out-dir",
+                                                f"{work}/video", "--config", conf])[-1])
+    stem = os.path.splitext(os.path.basename(video))[0]
+    sess = OnlineTracker(cfg, device="cuda", seed=0)
+    sess.reset(clear_latency=True)
+    sess.context_name = stem
+    records, stamps, hw = [], [], None
+    for ts, frame in iter_video_frames(video):
+        if hw is None:
+            hw = tuple(frame.shape[:2])
+            sess.warmup(hw)
+        records.extend(sess.step(frame, ts))
+        stamps.append(ts)
+    sess.close()
+    subm.write_jsonl(f"{work}/video_direct.jsonl",
+                     interpolate_gaps(records, stamps, cfg.pipeline.interp_max_gap))
+    if not (drawn["frames"] == len(jpegs) == len(stamps) == tracked["frames"] > 0
+            and open(f"{work}/video/{stem}_1.jsonl").read()
+            == open(f"{work}/video_direct.jsonl").read()):
+        raise AssertionError(f"C: draw wrote {drawn['frames']} frames ({len(jpegs)} JPEGs, "
+                             f"{len(stamps)} in the video), track --video read "
+                             f"{tracked['frames']}, or its records differ from the direct "
+                             f"session on the video's frames")
+    log(f"[C] draw: {drawn['frames']} frames with their tracks into JPEGs and an MJPG video "
+        f"({hw[0]}x{hw[1]}); track --video on it: {tracked['frames']} frames, "
+        f"{tracked['records']} records, byte-equal to a direct OnlineTracker on the frames "
+        f"OpenCV reads back ({card})")
+
+    # tune on the fixture clip's detections: card, CPU, two spawned workers
+    fcfg, frames5, gt = fixture["cfg"], fixture["frames"], fixture["gt"]
+    dets, _ = SegmentPipeline(fcfg, fixture_state_dict("pixels_detector"), device="cuda") \
+        .run_segment(SegmentFrames("fixture", 1, list(range(frames5.shape[0])), frames5),
+                     detections_only=True)
+    subm.write_jsonl(f"{work}/dets.jsonl", dets)
+    subm.write_jsonl(f"{work}/gt.jsonl", [
+        subm.TrackRecord.from_xyxy("fixture", t, 1, f"gt{k}", 1, gt["boxes"][t, k], 1.0)
+        for t in range(gt["boxes"].shape[0]) for k in np.flatnonzero(gt["present"][t])])
+    fconf = write_config(fcfg, "c_fixture.yaml")
+    tune = ["tune", "--from-detections", f"{work}/dets.jsonl", "--gt", f"{work}/gt.jsonl",
+            "--trials", "4", "--config", fconf]
+    reports = {}
+    for name, extra in (("cuda", []), ("cpu", ["--device", "cpu"]), ("cuda, 2 workers",
+                                                                     ["--workers", "2"])):
+        t1 = time.perf_counter()
+        verb(f"tune ({name})", tune + extra + ["--out", f"{work}/tune_{len(reports)}.json"])
+        reports[name] = (json.load(open(f"{work}/tune_{len(reports)}.json")),
+                         time.perf_counter() - t1)
+    base, cpu = reports["cuda"][0], reports["cpu"][0]
+    if not same_report(base, reports["cuda, 2 workers"][0]):
+        raise AssertionError("C: tune reports differ between the card and 2 workers on it")
+    # the card's auction is the Pallas kernel's schedule, the CPU's the JAX
+    # package's while-loop (ROADMAP Queue 3): both eps-optimal, they may
+    # choose differently among near-equal assignments, so a trial may differ
+    # card against CPU; the trials and knobs may not
+    if [(r["trial"], r["knobs"]) for r in sorted(base["results"], key=lambda r: r["trial"])] != \
+            [(r["trial"], r["knobs"]) for r in sorted(cpu["results"], key=lambda r: r["trial"])]:
+        raise AssertionError("C: tune's trials or knobs differ between the card and the CPU")
+    counts = ("records", "mota", "idf1", "num_idsw", "num_fp", "num_fn")
+    by_trial = {r["trial"]: r for r in cpu["results"]}
+    same = sorted(r["trial"] for r in base["results"]
+                  if all(r[k] == by_trial[r["trial"]][k] for k in counts))
+    motp = max(abs(r["motp"] - by_trial[r["trial"]]["motp"]) for r in base["results"])
+    differ = {r["trial"]: {k: [r[k], by_trial[r["trial"]][k]] for k in ("records", "mota")}
+              for r in base["results"] if r["trial"] not in same}
+    log(f"[C] tune --trials 4 on the fixture clip's {len(dets)} detections: best trial "
+        f"{base['best']['trial']} mota {base['best']['mota']:.4f} ({base['best_overrides']}); "
+        f"the same report with --workers 2 on the card; against --device cpu (the while-loop "
+        f"auction): the same trials and knobs, best trial {cpu['best']['trial']}, records, "
+        f"MOTA, IDF1, IDSW, FP and FN equal in trials {same}, differing in "
+        f"{json.dumps(differ)} (card, CPU), MOTP within {motp:.2e} (seconds "
+        f"{json.dumps({k: round(v, 1) for k, (_, v) in reports.items()})})")
+
+    # export --platform cuda, loaded again
+    cfg1 = _update_pipeline(cfg, decode_scale_denom=1)
+    t1 = time.perf_counter()
+    out = verb("export", ["export", "--out", f"{work}/det.pt2", "--platform", "cuda",
+                          "--batch", "2", "--config", write_config(cfg1, "c_export.yaml")])
+    export_s = time.perf_counter() - t1
+    program = load_program(f"{work}/det.pt2")
+    raw = torch.from_numpy(np.ascontiguousarray(frames[:2])).to("cuda")
+    images, _ = letterbox_batch(raw, tuple(frames.shape[1:3]), cfg1.detector.image_size)
+    zero_counts(counters)
+    got = program(images)
+    torch.cuda.synchronize()
+    verbs["export: the program's call"] = read_counts(counters)
+    nms_runs = verbs["export: the program's call"]["nms_mask"]
+    want = DetectorRunner(cfg1.detector, device="cuda", seed=0).detect(images)
+    diff = {k: (float((got[k].float() - getattr(want, k).float()).abs().max())
+                if got[k].numel() else 0.0) for k in OUTPUTS}
+    if nms_runs != 1 or any(diff.values()) or not bool(want.valid.any()):
+        raise AssertionError(f"C: the exported program differs from DetectorRunner.detect "
+                             f"({diff}) or ran the NMS kernel {nms_runs} times")
+    log(f"[C] export --platform cuda ({json.loads(out[-1])['input']}) in {export_s:.1f} s, "
+        f"loaded again: equal to DetectorRunner.detect on the card in every field, the NMS "
+        f"kernel launched {nms_runs} time by the program")
+
+    # --compile-cache: the second process finds the kernel and runs no nvcc
+    cache = os.path.join(work, "kernels")
+    probe = ("import json, sys; from waymo_2d_tracking_tpu_torch import cli; "
+             "from waymo_2d_tracking_tpu_torch.ops import _cuda; cli.main(sys.argv[1:]); "
+             "print(json.dumps({'nvcc_builds': sorted(_cuda.BUILD_LOG)}))")
+    builds, outs = [], []
+    here = os.path.dirname(os.path.abspath(__file__))
+    for i in range(2):
+        proc = subprocess.run(
+            [sys.executable, "-c", probe, "track", "--from-detections", f"{work}/dets.jsonl",
+             "--out", f"{work}/cc_{i}.jsonl", "--config", fconf, "--compile-cache", cache],
+            capture_output=True, text=True, timeout=300, cwd=here,
+            env={**os.environ, "PYTHONPATH": os.pathsep.join(
+                p for p in (here, os.environ.get("PYTHONPATH")) if p)})
+        if proc.returncode != 0:
+            raise AssertionError(f"C: --compile-cache process {i} failed:\n{proc.stderr[-2000:]}")
+        builds.append(json.loads(proc.stdout.strip().splitlines()[-1])["nvcc_builds"])
+        outs.append(open(f"{work}/cc_{i}.jsonl").read())
+    if builds[0] != ["auction"] or builds[1] != [] or outs[0] != outs[1]:
+        raise AssertionError(f"C: --compile-cache builds {builds}; outputs equal {outs[0] == outs[1]}")
+    log(f"[C] --compile-cache {os.path.relpath(cache, here)}: the first process built "
+        f"{builds[0]} with nvcc, the second loaded it and ran no nvcc; equal outputs; "
+        f"the cache holds {sorted(os.listdir(cache))}")
+
+    report = json.loads("\n".join(verb("doctor", ["doctor"])))
+    if report["status"] != "ok":
+        raise AssertionError(f"C: doctor reports {report}")
+    log(f"[C] doctor exits 0: {json.dumps(report, separators=(',', ':'))}")
+    total = {k: sum(v[k] for v in verbs.values()) for k in counters}
+    log(f"[C] the command-line phase in {time.perf_counter() - t0:.1f} s; launches of each "
+        f"verb, counted from 0 around it alone (tune's 2 workers and the --compile-cache "
+        f"processes launch in processes of their own, not counted here): "
+        f"{json.dumps(verbs)}; their sum {json.dumps(total)}")
+    # the verbs that detect launch NMS, those that track the auction
+    need = {"nms_mask": ("track", "track --online", "detect", "track --video",
+                         "export: the program's call"),
+            "auction": ("track", "track --online", "track --video", "tune (cuda)")}
+    missing = [(k, v) for k, names in need.items() for v in names if verbs[v][k] == 0]
+    if missing:
+        raise AssertionError(f"C: no launch of the kernel in these verbs: {missing}")
+    return total
+
+
+def _update_pipeline(cfg, **kw):
+    from waymo_2d_tracking_tpu_torch.config import _update
+
+    return _update(cfg, {"pipeline": kw})
 
 
 # ----------------------------------------------------------------- phase T
@@ -2169,9 +2728,18 @@ def main() -> int:
         f"{json.dumps({k: fn.launches for k, fn in counters.items()})}")
     phase_downscale(np, torch, smi)
     committed = phase_fixtures(np, torch, nms, assign)
+    t0 = time.perf_counter()
+    serve_fixture = phase_serve_fixture(np, torch, counters, smi, committed["online"])
+    log(f"[S1] done in {time.perf_counter() - t0:.1f} s")
     phase_ingest(np, torch, smi, HEADLINE_INT8)
     paths, headline_frames = phase_headlines(np, torch, counters, smi)
     paths.update(phase_new_paths(np, torch, counters, smi, headline_frames))
+    paths["serve_fixture"] = serve_fixture
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    paths["serve_headline"] = phase_serve_headline(np, torch, counters, smi, headline_frames)
+    log(f"[S2] done in {time.perf_counter() - t0:.1f} s")
+    paths["cli"] = phase_cli(np, torch, counters, smi, committed["online"], headline_frames)
     del headline_frames
     torch.cuda.empty_cache()
     paths["train"] = phase_train(np, torch, counters, smi, nms, committed)

@@ -1,4 +1,5 @@
-"""The port stands alone: it imports neither JAX, the JAX package nor cv2, its
+"""The port stands alone: it imports neither JAX, flax, orbax, the JAX package
+nor cv2 (``data/video.py`` and ``utils/viz.py`` load cv2 on demand), its
 config copy cannot drift from the JAX one, ``chip_smoke.py``'s preset dicts
 are ``configs/headline.yaml``, ``configs/headline_centernet.yaml`` and
 ``configs/config4_multicam.yaml``, and nothing falls back to the CPU on its
@@ -43,7 +44,7 @@ def test_port_imports_no_jax_in_a_fresh_process():
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "importlib.import_module('chip_smoke')\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'waymo_2d_tracking_tpu', 'cv2'))\n"
+        "('jax', 'jaxlib', 'flax', 'orbax', 'waymo_2d_tracking_tpu', 'cv2'))\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n"
     )
@@ -57,7 +58,9 @@ def test_port_imports_no_jax_in_a_fresh_process():
                 "pipeline.manifest", "io_out.postprocess", "data.prefetch", "tracker.graph",
                 "models.quant", "data._native", "data.jpeg", "data.tfrecord_native",
                 "data.waymo", "utils.protolite", "train.losses", "train.train", "eval.ap",
-                "data.coco"):
+                "data.coco", "cli", "pipeline.server", "pipeline.tune", "io_out.export",
+                "data.video", "utils.profiling", "utils.compile_cache", "eval.hota",
+                "io_out.motchallenge", "utils.viz", "train.port_torch"):
         assert f"waymo_2d_tracking_tpu_torch.{new}" in mods, new
 
 
@@ -85,7 +88,7 @@ def test_sources_never_name_the_jax_package():
             elif isinstance(node, ast.ImportFrom):
                 names = [node.module or ""]
             for name in names:
-                assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "cv2",
+                assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "orbax", "cv2",
                                                   "waymo_2d_tracking_tpu"), (path, name)
 
 

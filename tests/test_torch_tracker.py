@@ -108,3 +108,45 @@ def test_mot_copy_matches_jax():
     want = jax_evaluate_mot(jgt(gt), jtof(outs, 60)).as_dict()
     got = evaluate_mot(gt_to_frames(gt), track_outputs_to_frames(outs, 60)).as_dict()
     assert got == want
+
+
+def test_kalman_diagonal_solve_bit_equal_to_jax():
+    """The port writes the Kalman solves out for the diagonal innovation
+    covariance (reciprocal multiply, squares summed in order): the JAX
+    package's general solves give the same bits on the CPU, and the
+    covariance's 4x4 blocks stay diagonal through a tracker run."""
+    from waymo_2d_tracking_tpu.config import KalmanConfig as JaxKalmanConfig
+    from waymo_2d_tracking_tpu.tracker import kalman as jkalman
+
+    from waymo_2d_tracking_tpu_torch.config import KalmanConfig
+    from waymo_2d_tracking_tpu_torch.tracker import kalman
+
+    rng = np.random.default_rng(0)
+    s, d = 48, 40
+    mean = rng.uniform(0, 500, (s, 8)).astype(np.float32)
+    cov = np.zeros((s, 8, 8), np.float32)
+    for i in range(4):
+        cov[:, i, i] = rng.uniform(0.5, 300, s)
+        cov[:, 4 + i, 4 + i] = rng.uniform(0.5, 300, s)
+        cov[:, i, 4 + i] = cov[:, 4 + i, i] = rng.uniform(0.1, 50, s)
+    meas = rng.uniform(0, 500, (s, 4)).astype(np.float32)
+    dets = rng.uniform(0, 500, (d, 4)).astype(np.float32)
+    score = rng.uniform(0, 1, s).astype(np.float32)
+    for nsa in (False, True):
+        cfg, jcfg = KalmanConfig(nsa=nsa), JaxKalmanConfig(nsa=nsa)
+        got = kalman.update(*map(torch.from_numpy, (mean, cov, meas)), cfg,
+                            score=torch.from_numpy(score))
+        want = jkalman.update(mean, cov, meas, jcfg, score=score)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    np.testing.assert_array_equal(
+        kalman.gating_distance(*map(torch.from_numpy, (mean, cov, dets)), KalmanConfig()).numpy(),
+        np.asarray(jkalman.gating_distance(mean, cov, dets, JaxKalmanConfig())))
+
+    dets_j, _ = generate_clip(CLIP)
+    cfg = TrackerConfig(**{**CFGS["golden_config1.npz"], "motion_gate": 9.4877})
+    tracker = Tracker(cfg, device="cpu")
+    state, _ = tracker.run(Detections.from_numpy(dets_j))
+    blocks = state.cov.reshape(-1, 2, 4, 2, 4).permute(0, 1, 3, 2, 4)
+    off = blocks * (1 - torch.eye(4))
+    assert bool((off == 0).all()) and bool((state.status > 0).any())

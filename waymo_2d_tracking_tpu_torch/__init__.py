@@ -4,7 +4,10 @@ The module layout mirrors the JAX package, which stays the numerical
 reference: ``config``, ``types``, ``ops/{iou,nms,assign,roi_align,topk}``,
 ``tracker/{kalman,cost,lifecycle,tracker}``, ``data/{preprocess,synthetic}``,
 ``models/{resnet,fpn,heads,centernet,reid,detector}``, ``pipeline/{run,tta}``,
-``io_out/submission``, ``eval/mot`` and ``weights``.
+``io_out/submission``, ``eval/mot`` and ``weights``, with the drivers
+(``pipeline/{multicam,online,offline,link}``), training (``train/``), the
+serving daemon (``pipeline/server``), the command line (``cli``), ``tune``
+and ``export``.
 
 Public functions keep the JAX package's layouts (NHWC images and features,
 ``(N, D, 4)`` xyxy boxes, the same dtypes). Every Pallas kernel of the JAX

@@ -1,5 +1,7 @@
-"""Track records and their JSONL form (the part of ``io_out/submission.py``
-on the port's paths; the Waymo protobuf writer is a later slice).
+"""Track records, their JSONL form and the Waymo ``metrics.Objects``
+protobuf (counterpart of ``io_out/submission.py``; the protobuf is
+hand-encoded with ``utils/protolite.py`` from the field-number table ``_F``,
+the JAX package's, so both packages write the same bytes).
 
 Record schema (2D camera tracking): context_name, timestamp_micros,
 camera_name (enum int), object_id (str), type (1=vehicle, 2=pedestrian,
@@ -13,6 +15,8 @@ from typing import Iterable, List, Sequence
 
 import numpy as np
 
+from waymo_2d_tracking_tpu_torch.utils import protolite as pb
+
 # Waymo label.proto Label.Type enum values
 TYPE_VEHICLE = 1
 TYPE_PEDESTRIAN = 2
@@ -20,6 +24,32 @@ TYPE_SIGN = 3
 TYPE_CYCLIST = 4
 # internal class ids (0, 1, 2) -> Waymo types
 CLASS_TO_WAYMO_TYPE = (TYPE_VEHICLE, TYPE_PEDESTRIAN, TYPE_CYCLIST)
+WAYMO_TYPE_NAMES = {
+    TYPE_VEHICLE: "VEHICLE", TYPE_PEDESTRIAN: "PEDESTRIAN",
+    TYPE_SIGN: "SIGN", TYPE_CYCLIST: "CYCLIST",
+}
+
+# protobuf field numbers (metrics.Objects / Object, label.proto Label / Box)
+_F = {
+    "objects.objects": 1,
+    "object.label": 1,
+    "object.score": 2,
+    "object.overlap_nlz": 3,
+    "object.context_name": 4,
+    "object.timestamp": 5,
+    "object.camera_name": 6,
+    "label.box": 1,
+    "label.metadata": 2,
+    "label.type": 3,
+    "label.id": 4,
+    "box.center_x": 1,
+    "box.center_y": 2,
+    "box.center_z": 3,
+    "box.length": 5,
+    "box.width": 4,
+    "box.height": 6,
+    "box.heading": 7,
+}
 
 
 @dataclasses.dataclass
@@ -73,6 +103,61 @@ def read_jsonl(path: str) -> List[TrackRecord]:
         for line in f:
             if line.strip():
                 out.append(TrackRecord(**json.loads(line)))
+    return out
+
+
+def _encode_object(r: TrackRecord) -> bytes:
+    box = (
+        pb.field_double(_F["box.center_x"], r.center_x)
+        + pb.field_double(_F["box.center_y"], r.center_y)
+        + pb.field_double(_F["box.length"], r.length)
+        + pb.field_double(_F["box.width"], r.width)
+    )
+    label = (
+        pb.field_message(_F["label.box"], box)
+        + pb.field_varint(_F["label.type"], r.object_type)
+        + pb.field_string(_F["label.id"], r.object_id)
+    )
+    return (
+        pb.field_message(_F["object.label"], label)
+        + pb.field_float(_F["object.score"], r.score)
+        + pb.field_string(_F["object.context_name"], r.context_name)
+        + pb.field_varint(_F["object.timestamp"], r.timestamp_micros)
+        + pb.field_varint(_F["object.camera_name"], r.camera_name)
+    )
+
+
+def write_waymo_pb(path: str, records: Iterable[TrackRecord]) -> int:
+    n = 0
+    with open(path, "wb") as f:
+        for r in records:
+            f.write(pb.field_message(_F["objects.objects"], _encode_object(r)))
+            n += 1
+    return n
+
+
+def read_waymo_pb(path: str) -> List[TrackRecord]:
+    with open(path, "rb") as f:
+        data = f.read()
+    out = []
+    for field, _w, raw in pb.iter_fields(data):
+        if field != _F["objects.objects"]:
+            continue
+        obj = pb.parse_message(raw)
+        label = pb.parse_message(obj[_F["object.label"]][0])
+        box = pb.parse_message(label[_F["label.box"]][0])
+        out.append(TrackRecord(
+            context_name=obj[_F["object.context_name"]][0].decode(),
+            timestamp_micros=pb.as_sint(obj[_F["object.timestamp"]][0]),
+            camera_name=obj[_F["object.camera_name"]][0],
+            object_id=label[_F["label.id"]][0].decode(),
+            object_type=label[_F["label.type"]][0],
+            center_x=pb.as_double(box[_F["box.center_x"]][0]),
+            center_y=pb.as_double(box[_F["box.center_y"]][0]),
+            length=pb.as_double(box[_F["box.length"]][0]),
+            width=pb.as_double(box[_F["box.width"]][0]),
+            score=pb.as_float(obj[_F["object.score"]][0]),
+        ))
     return out
 
 

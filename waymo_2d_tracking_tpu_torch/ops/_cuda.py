@@ -16,7 +16,7 @@ reports registers and shared memory per kernel; the report is kept in
 ``BUILD_LOG``.
 
 There is no fallback: a missing ``nvcc``, a failed build or a failed launch
-raises.
+raises ``KernelError``.
 """
 from __future__ import annotations
 
@@ -40,6 +40,14 @@ NVCC_FLAGS = (
 )
 
 BUILD_LOG: Dict[str, str] = {}
+
+
+class KernelError(RuntimeError):
+    """A kernel could not be built, loaded or launched (``nvcc`` missing or
+    failing, a non-zero ``cudaError_t``). After a failed launch the CUDA
+    context may be unusable: a long-lived caller stops instead of serving on."""
+
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
@@ -47,7 +55,7 @@ _LOCK = threading.Lock()
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError(
+        raise KernelError(
             "nvcc not found (PATH or /usr/local/cuda/bin); the CUDA kernels "
             "are built from source at first use"
         )
@@ -85,7 +93,7 @@ def _build(names: Sequence[str]) -> None:
         else:
             os.replace(tmp, out)
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelError("\n".join(failed))
 
 
 def build_all(names: Sequence[str] = KERNELS) -> None:
@@ -103,14 +111,17 @@ def library(name: str) -> ctypes.CDLL:
     build_all((name,))
     with _LOCK:
         if name not in _LIBS:
-            _LIBS[name] = ctypes.CDLL(_lib_path(name))
+            try:
+                _LIBS[name] = ctypes.CDLL(_lib_path(name))
+            except OSError as e:
+                raise KernelError(f"cannot load the {name} kernel library: {e}") from e
         return _LIBS[name]
 
 
 def check(err: int, what: str) -> None:
     """Raise on a non-zero ``cudaError_t`` returned by a C entry point."""
     if err != 0:
-        raise RuntimeError(f"{what} kernel launch failed: cudaError_t {err}")
+        raise KernelError(f"{what} kernel launch failed: cudaError_t {err}")
 
 
 def stream_handle(device) -> int:

@@ -114,17 +114,32 @@ nms_mask_cuda.launches = 0
 nms_mask_cuda.last_shape = None  # (B, N) of the last launch
 
 
+@torch.library.custom_op("w2t::nms_mask", mutates_args=())
+def nms_mask_op(boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float) -> torch.Tensor:
+    """The keep-mask as the operator ``w2t::nms_mask``: ``nms_mask_cuda`` on
+    a CUDA tensor, ``nms_mask_reference`` on a CPU one. A ctypes launch
+    cannot be traced, an operator can: ``torch.export`` records this call
+    as one node (``io_out/export.py``), and a loaded program runs it here."""
+    if boxes.device.type == "cuda":
+        return nms_mask_cuda(boxes, valid, iou_threshold)
+    return nms_mask_reference(boxes, valid, iou_threshold)
+
+
+@nms_mask_op.register_fake
+def _nms_mask_fake(boxes, valid, iou_threshold):
+    return torch.empty(valid.shape, dtype=torch.bool, device=boxes.device)
+
+
 def nms_mask_batched(boxes: torch.Tensor, valid: torch.Tensor,
                      iou_threshold: float = 0.6) -> torch.Tensor:
     """Greedy NMS keep-mask. boxes (B, N, 4) score-sorted, valid (B, N).
 
-    A CUDA tensor launches the kernel; a CPU tensor runs the plain version.
+    A CUDA tensor launches the kernel; a CPU tensor runs the plain version;
+    both through the operator ``w2t::nms_mask``.
     """
     boxes = boxes.float().contiguous()
     valid = valid.bool().contiguous()
-    if boxes.device.type == "cuda":
-        return nms_mask_cuda(boxes, valid, iou_threshold)
-    return nms_mask_reference(boxes, valid, iou_threshold)
+    return nms_mask_op(boxes, valid, float(iou_threshold))
 
 
 def nms_batched(

@@ -2,6 +2,15 @@
 
 State per track: 8-dim [cx, cy, w, h, vcx, vcy, vw, vh], dt = 1 frame.
 Measurement: [cx, cy, w, h]. Noise scales with box height.
+
+Every coordinate is filtered on its own: the initial covariance, F, Q and R
+act per coordinate, so each 4x4 block of P stays diagonal, and so does the
+innovation covariance S. The JAX package solves with S by a general LU
+solve; on the CPU (LAPACK, in both packages) that solve of a diagonal
+system multiplies by the reciprocals of its pivots, while the card's solver
+divides. The port writes the solve out as that reciprocal multiply
+(``update``, ``gating_distance``, with the squares summed in order), so the
+card gives the CPU's, and the JAX package's, bits.
 """
 from __future__ import annotations
 
@@ -82,9 +91,10 @@ def update(
         r = r * torch.clamp(1.0 - score, min=1e-3)[..., None]
 
     p_xz = cov[..., :, :MEAS_DIM]                                   # (..., 8, 4)
-    s = cov[..., :MEAS_DIM, :MEAS_DIM] + _eye(MEAS_DIM, cov) * r[..., None, :]
-    # solve_ex: no error check, so no host sync on the card
-    k = torch.linalg.solve_ex(s, p_xz.transpose(-1, -2)).result.transpose(-1, -2)
+    # S = P[:4, :4] + R is diagonal (module docstring): K = P_xz S^-1 as the
+    # reciprocal multiply of the CPU's LU solve
+    s_diag = torch.diagonal(cov[..., :MEAS_DIM, :MEAS_DIM], dim1=-2, dim2=-1) + r
+    k = p_xz * torch.reciprocal(s_diag)[..., None, :]
     innovation = meas - mean[..., :MEAS_DIM]
     new_mean = mean + torch.einsum("...ij,...j->...i", k, innovation)
     new_cov = cov - torch.einsum("...ij,...jk->...ik", k, cov[..., :MEAS_DIM, :])
@@ -101,8 +111,13 @@ def gating_distance(
     meas (..., D, 4) -> (..., S, D)."""
     h_trk = torch.clamp(mean[..., 3], min=1.0)
     r = _measurement_noise_diag(h_trk, cfg)
-    s = cov[..., :MEAS_DIM, :MEAS_DIM] + _eye(MEAS_DIM, cov) * r[..., None, :]
+    s_diag = torch.diagonal(cov[..., :MEAS_DIM, :MEAS_DIM], dim1=-2, dim2=-1) + r
     diff = meas[..., None, :, :] - mean[..., :, None, :MEAS_DIM]    # (..., S, D, 4)
-    chol = torch.linalg.cholesky_ex(s + 1e-6 * _eye(MEAS_DIM, s)).L
-    z = torch.linalg.solve_ex(chol[..., None, :, :], diff[..., None]).result
-    return torch.sum(z.squeeze(-1) ** 2, dim=-1)
+    # the Cholesky factor of the diagonal S + 1e-6 I is its square root,
+    # correctly rounded as LAPACK's: torch's vectorized CPU sqrt can be an ulp
+    # off, and a float64 square root rounds to the float32 one exactly. The
+    # solve with it is the CPU's reciprocal multiply, the squares summed in order
+    chol = torch.sqrt((s_diag + 1e-6).double()).float()
+    z = diff * torch.reciprocal(chol)[..., :, None, :]
+    q = z * z
+    return ((q[..., 0] + q[..., 1]) + q[..., 2]) + q[..., 3]
