@@ -138,6 +138,27 @@ C. the command line on the card: ``track --segments-dir`` on the ingest
    against ``DetectorRunner.detect``; ``--compile-cache`` (a second process
    runs no ``nvcc``); ``doctor``. Each verb's launches are counted around
    that verb alone.
+D. the distributed slice, ranks spawned on cuda:0 by
+   ``parallel/launch.py run_ranks`` (``tools/rank_cases.py`` bodies, frames
+   mapped from ``.npy`` files, each rank counting its own launches from 0):
+   two ranks over gloo run D1-D4, one rank over NCCL their world-1 cases, and
+   NCCL on two ranks sharing the card is refused. D1 the headline (denom 1)
+   on three 640x960 segments of 150 / 60 / 90 frames through
+   ``run_segments_sharded``: JSONL byte-equal and sidecars bit-equal to
+   ``run_segments`` on the card, the manifest, a rerun, detections only
+   against ``run_segment``, one segment at world 1; D2 config 4, two contexts
+   of five 1280x1920 cameras (16 frames, chunk 8) through
+   ``run_context_groups_sharded`` against ``run_context_groups``; D3 one
+   data-parallel step at the headline's width (batch 16, 8 a rank, ReID on;
+   plain, accumulation 2, remat) against the single-device step in float32
+   (TF32 off) and in bf16, params and EMA bit-equal across the ranks after 3
+   steps, the checkpoint, steps/s of two ranks sharing the card, held-out AP
+   of the replicated weights; D4 the ring against JAX's rule written out,
+   ties included, at world 2 and 1, and ``link_tracks`` with the mesh on D1's
+   and D2's sidecars against the dense scoring; D5 ``track``, ``detect``,
+   ``link`` and ``train --steps 1`` with ``--sharded`` as two processes
+   through the ``W2T_*`` variables against the unsharded verbs. D's files
+   are removed at its end.
 
 The last two lines are the kernels' JSON record and the device record. It
 imports no JAX, nothing of the JAX package and no cv2.
@@ -150,6 +171,7 @@ import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1710,7 +1732,8 @@ def phase_online(np, torch, counters, card, name, session, frames, ticks, per_ti
     return counts
 
 
-def phase_new_paths(np, torch, counters, card, headline_frames):
+def phase_new_paths(np, torch, counters, card, headline_frames, plans):
+    """Config 4, the online drivers and S3; saves D2's frames into ``plans``."""
     from waymo_2d_tracking_tpu_torch.config import Config, _update
     from waymo_2d_tracking_tpu_torch.pipeline.online import OnlineMultiCamTracker, OnlineTracker
 
@@ -1718,6 +1741,7 @@ def phase_new_paths(np, torch, counters, card, headline_frames):
     frames = render_cameras(np, 5, 40, seed0=40)
     log(f"[3] rendered 5 cameras x {frames.shape[0]} frames at 640x960, upscaled to "
         f"{frames.shape[2]}x{frames.shape[3]} on the host in {time.perf_counter() - t0:.1f} s")
+    plans["d2"] = save_d2_frames(np, frames)
     paths = {"config4_multicam": phase_config4(np, torch, counters, card, frames)}
 
     cfg4 = _update(Config(), {**CONFIG4, "tracker": {**CONFIG4["tracker"],
@@ -2683,6 +2707,485 @@ def phase_train(np, torch, counters, card, nms, committed):
     log(f"[T4] done in {time.perf_counter() - t0:.1f} s")
     return counts
 
+# ----------------------------------------------------------------------------
+# D: the distributed slice. Ranks are spawned processes on cuda:0 (one card),
+# two of them over gloo (NCCL takes one rank a card), one over NCCL; each
+# rank maps its frames from .npy files and counts its own kernel launches.
+
+D1_LENGTHS = (150, 60, 90)      # the 150-frame segment spans two 128-frame chunks
+D2_FRAMES = 16
+D_WORLD = 2
+
+
+def dist_dir(*parts) -> str:
+    """D's working directory: inside the checkout (gitignored) but outside
+    ``scratch_dir()``, whose files are kept, since D's frames and outputs
+    run to gigabytes."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), ".scratch", "chip_smoke_dist",
+                        *parts)
+    os.makedirs(path, exist_ok=True)
+    return path
+
+
+def save_d1_frames(np, frames):
+    """D1's three segments of unequal length, cut from the headline's
+    640x960 render and saved for the ranks to map. Returns their plan."""
+    plan, lo = [], 0
+    for i, t in enumerate(D1_LENGTHS):
+        path = os.path.join(dist_dir("frames"), f"d1_seg{i}.npy")
+        np.save(path, frames[lo:lo + t])
+        plan.append({"context": f"d1seg{i}", "camera": 1, "path": path,
+                     "timestamps": [100_000 * k for k in range(t)]})
+        lo += t
+    return plan
+
+
+def save_d2_frames(np, frames):
+    """D2's two contexts of 5 cameras at 1280x1920, 16 frames each, cut from
+    config 4's render (frames (T >= 32, 5, H, W, 3)). Returns their plan."""
+    plan = []
+    for i in range(2):
+        for cam in range(frames.shape[1]):
+            path = os.path.join(dist_dir("frames"), f"d2_ctx{i}_{cam + 1}.npy")
+            np.save(path, frames[i * D2_FRAMES:(i + 1) * D2_FRAMES, cam])
+            plan.append({"context": f"d2ctx{i}", "camera": cam + 1, "path": path,
+                         "timestamps": [100_000 * k for k in range(D2_FRAMES)]})
+    return plan
+
+
+def d_configs():
+    """D1's headline at decode_scale_denom 1 on 640x960 frames, D2's config 4,
+    both with the tracker gates lowered for random weights; D3's headline
+    training cases at batch 16 with ReID (plain, accumulation 2, remat; in
+    float32 with TF32 off and in bf16) and its steps config (bf16)."""
+    from waymo_2d_tracking_tpu_torch.config import Config, _update
+
+    d1 = gated({**HEADLINE, "pipeline": {**HEADLINE["pipeline"], "decode_scale_denom": 1}})
+    d2 = _update(Config(), {**CONFIG4, "tracker": {**CONFIG4["tracker"],
+                                                    **CONFIG4_RANDOM_WEIGHT_GATES}})
+    train = {"batch_size": 16, "learning_rate": 1e-3, "warmup_steps": 2, "total_steps": 1000,
+             "reid_loss_weight": 0.5}
+    mk = lambda dtype, **kw: _update(Config(), {  # noqa: E731
+        "detector": {**HEADLINE["detector"], "dtype": dtype}, "train": {**train, **kw}})
+    d3 = {f"{name} {dtype}": mk(dtype, **kw) for dtype in ("float32", "bfloat16")
+          for name, kw in (("reid", {}), ("reid accum 2", {"grad_accum_steps": 2}),
+                           ("reid remat", {"remat": True}))}
+    return d1, d2, d3, mk("bfloat16", ema_decay=0.999)
+
+
+# D3's bounds, data parallel against the single-device step on the card. The
+# ranks' convolutions see 8 images where the single device sees 16, and
+# cuDNN picks its algorithms by shape, so the forward differs by rounding
+# (BatchNorm statistics within 6.7e-7 to 2.5e-6 in float32 with TF32 off,
+# 3.7e-4 to 4.7e-4 in bf16), and a ReLU input near zero changes side and
+# carries its whole gradient: the whole gradient differs by 2.1e-3 to
+# 2.3e-3 in float32 and 0.088 to 0.138 in bf16, the size of the
+# single-device step's own difference when its batch's images are reordered
+# (1.7e-3 to 1.9e-3 and 0.095 to 0.110), which each run prints beside; the
+# loss by 0 and at most 2.4e-4 (H100 80GB HBM3, 700 W).
+D3_TOL = {"float32": {"loss": 1e-5, "whole": 1e-2, "stats": 1e-5},
+          "bfloat16": {"loss": 1e-3, "whole": 0.3, "stats": 1e-3}}
+
+
+def same_outputs(np, got_dir, want_dir, names, what):
+    """Track or detection JSONL byte-equal; the gallery sidecars' arrays
+    bit-equal where the reference has them."""
+    for name in names:
+        with open(os.path.join(got_dir, name), "rb") as g, \
+                open(os.path.join(want_dir, name), "rb") as w:
+            if g.read() != w.read():
+                raise AssertionError(f"{what}: {name} differs from the unsharded driver's")
+        gal = name[: -len(".jsonl")] + ".gallery.npz"
+        if os.path.exists(os.path.join(want_dir, gal)):
+            zg, zw = np.load(os.path.join(got_dir, gal)), np.load(os.path.join(want_dir, gal))
+            for k in zw.files:
+                if zg[k].dtype != zw[k].dtype or not np.array_equal(zg[k], zw[k]):
+                    raise AssertionError(f"{what}: {gal}:{k} differs from the unsharded driver's")
+
+
+def ring_model(np, q, g, v, n):
+    """JAX's ring on n shards, written out: block o visits shards o, o+1, ...;
+    a strictly larger score takes over; -2 scores invalid entries, -1 when
+    nothing valid was seen."""
+    s = (q @ g.T).astype(np.float32)
+    s[:, ~v] = -2.0
+    qs, gs = q.shape[0] // n, g.shape[0] // n
+    best = np.full(q.shape[0], -2.0, np.float32)
+    idx = np.full(q.shape[0], -1, np.int64)
+    for o in range(n):
+        rows = slice(o * qs, (o + 1) * qs)
+        for k in range(n):
+            sh = (o + k) % n
+            blk = s[rows, sh * gs:(sh + 1) * gs]
+            lb, la = blk.max(axis=1), blk.argmax(axis=1) + sh * gs
+            take = lb > best[rows]
+            best[rows] = np.where(take, lb, best[rows])
+            idx[rows] = np.where(take, la, idx[rows])
+    return best, np.where(best <= -2.0, -1, idx)
+
+
+def d4_cases(np):
+    """The headline's gallery shape (1024 entries of 128, 20 % invalid, 64
+    queries) and exact ties (basis vectors: equal rows in every shard)."""
+    rng = np.random.default_rng(4)
+    norm = lambda x: (x / np.linalg.norm(x, axis=-1, keepdims=True)).astype(np.float32)  # noqa: E731
+    eye = np.eye(8, dtype=np.float32)
+    return [(norm(rng.normal(size=(64, 128))), norm(rng.normal(size=(1024, 128))),
+             rng.uniform(size=1024) > 0.2),
+            (eye[np.arange(8) % 3], eye[np.arange(16) % 3], np.ones(16, bool))]
+
+
+def sum_launches(results):
+    """The kernel launches of the ranks' bodies, summed."""
+    return {k: sum(r["launches"][k] for r in results) for k in results[0]["launches"]}
+
+
+def write_dir_segment(np, root, ctx, frames, cameras):
+    """A directory segment (``data/waymo.py``'s format: JPEG frames and a
+    meta.json), one camera for each entry of ``cameras`` (a name and a
+    (T, H, W, 3) uint8 array), written with Pillow."""
+    from PIL import Image
+
+    seg = os.path.join(root, ctx)
+    os.makedirs(os.path.join(seg, "frames"), exist_ok=True)
+    from waymo_2d_tracking_tpu_torch.data.waymo import CAMERA_NAMES
+
+    for name, arr in cameras:
+        for t in range(arr.shape[0]):
+            Image.fromarray(arr[t]).save(os.path.join(seg, "frames", f"{t}_{CAMERA_NAMES[name]}.jpg"),
+                                         quality=90)
+    with open(os.path.join(seg, "meta.json"), "w") as f:
+        json.dump({"context_name": ctx, "timestamps": [100_000 * t for t in range(frames)],
+                   "cameras": {name: CAMERA_NAMES[name] for name, _ in cameras}}, f)
+
+
+def phase_distributed(np, torch, card, d1_plan, d2_plan):
+    """D1-D4 in one spawn of two ranks on cuda:0 over gloo, their world-1
+    counterparts in one spawn over NCCL, NCCL refused for two ranks on one
+    card, then D5. Returns the launches of each new path, summed over the
+    ranks (each rank's counts set to 0 just before each body)."""
+    from waymo_2d_tracking_tpu_torch.parallel.launch import run_ranks
+    from waymo_2d_tracking_tpu_torch.tools import rank_cases
+
+    cfg1, cfg2, d3, steps_cfg = d_configs()
+    cases4 = d4_cases(np)
+    out = {k: dist_dir(k) for k in ("d1", "d2", "d3", "d1_nccl", "d3_nccl")}
+    links = [(os.path.join(out["d1"], "tracks"), os.path.join(out["d1"], "linked_ring"), 0.6),
+             (os.path.join(out["d2"], "contexts"), os.path.join(out["d2"], "linked_ring"), 0.6)]
+    calls = [("fanout_case", ("cuda", cfg1, out["d1"], d1_plan)),
+             ("fanout_case", ("cuda", cfg1, out["d2"], (), (), cfg2, d2_plan)),
+             ("train_case", ("cuda", d3, 16, os.path.join(out["d3"], "ckpt"), steps_cfg, 3, 5, 3,
+                             True)),
+             ("ring_case", ("cuda", cases4, (), links))]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(rank_cases.run_all, D_WORLD, calls, device="cuda", backend="gloo",
+                      timeout=700, workdir=dist_dir("w2"))
+    wall2 = time.perf_counter() - t0
+    calls1 = [("fanout_case", ("cuda", cfg1, out["d1_nccl"], d1_plan[1:2])),
+              ("train_case", ("cuda", {k: d3[k] for k in ("reid float32", "reid bfloat16")}, 16,
+                              os.path.join(out["d3_nccl"], "c"))),
+              ("ring_case", ("cuda", cases4))]
+    t0 = time.perf_counter()
+    (one,) = run_ranks(rank_cases.run_all, 1, calls1, device="cuda", backend="nccl", timeout=400,
+                       workdir=dist_dir("w1"))
+    wall1 = time.perf_counter() - t0
+    secs = [[round(x, 2) for x in r["seconds"]] for r in ranks]
+    log(f"[D] {D_WORLD} ranks on cuda:0 over gloo ran D1-D4 in {wall2:.1f} s of wall time, each "
+        f"rank's bodies (D1, D2, D3, D4) {json.dumps(secs)} s; one rank over NCCL ran D1, D3 and "
+        f"D4's world-1 cases in {wall1:.1f} s, bodies {json.dumps([round(x, 2) for x in one['seconds']])} s "
+        f"({card})")
+    t0 = time.perf_counter()
+    try:
+        run_ranks(rank_cases.run_all, 2, [], device="cuda", backend="nccl", timeout=120,
+                  workdir=dist_dir("refused"))
+        raise AssertionError("NCCL with two ranks on one card was not refused")
+    except torch.multiprocessing.ProcessRaisedException as e:
+        if "NCCL takes one rank a device" not in str(e):
+            raise
+    log(f"[D] NCCL with two ranks on cuda:0 refused by both ranks before any communicator "
+        f"({time.perf_counter() - t0:.1f} s)")
+    res = lambda i: [r["results"][i] for r in ranks]   # noqa: E731
+    paths = {"sharded_track": phase_d1(np, torch, card, cfg1, d1_plan, out, res(0),
+                                       one["results"][0]),
+             "sharded_multicam": phase_d2(np, torch, card, cfg2, d2_plan, out, res(1)),
+             "train_dp": phase_d3(np, torch, card, d3, res(2), one["results"][1])}
+    phase_d4(np, torch, card, cases4, res(3), one["results"][2], links)
+    paths["cli_sharded"] = phase_d5(np, torch, card, cfg1, d1_plan)
+    return paths
+
+
+def phase_d1(np, torch, card, cfg, plan, out, ranks, one):
+    """D1: the headline's segments through ``run_segments_sharded`` against
+    ``run_segments`` and ``run_segment(detections_only=True)`` on the card."""
+    from waymo_2d_tracking_tpu_torch.io_out import submission as subm
+    from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentFrames, SegmentPipeline, run_segments
+
+    segs = [SegmentFrames(p["context"], 1, p["timestamps"], frames=np.load(p["path"], mmap_mode="r"))
+            for p in plan]
+    pipe = SegmentPipeline(cfg, device="cuda", seed=0)
+    ref = dist_dir("d1_ref")
+    t0 = time.perf_counter()
+    want = run_segments(pipe, segs, ref)
+    t_ref = time.perf_counter() - t0
+    names = [f"{p['context']}_1.jsonl" for p in plan]
+    same_outputs(np, os.path.join(out["d1"], "tracks"), ref, names, "D1 tracks")
+    for seg, name in zip(segs, names):
+        records, _ = pipe.run_segment(seg, detections_only=True)
+        subm.write_jsonl(os.path.join(ref, "det_" + name), records)
+        with open(os.path.join(out["d1"], "detect", name), "rb") as g, \
+                open(os.path.join(ref, "det_" + name), "rb") as w:
+            if g.read() != w.read():
+                raise AssertionError(f"D1 detections_only: {name} differs from run_segment's")
+    same_outputs(np, os.path.join(out["d1_nccl"], "tracks"), ref, names[1:2], "D1 world 1 NCCL")
+    keys = ("context", "camera", "frames", "tracks", "records")
+    for r in ranks:
+        if [{k: x[k] for k in keys} for x in r["tracks"]] != [{k: w[k] for k in keys} for w in want] \
+                or [x["shard"] for x in r["tracks"]] != [0, 1, 0] or r["rerun"] != []:
+            raise AssertionError(f"D1 stats {r['tracks']} / rerun {r['rerun']}")
+    with open(os.path.join(out["d1"], "tracks", "manifest.jsonl")) as f:
+        manifest = [json.loads(line)["key"] for line in f if line.strip()]
+    if manifest != [f"{p['context']}/1" for p in plan]:
+        raise AssertionError(f"D1 manifest {manifest}")
+    launches = sum_launches(ranks)
+    log(f"[D1] sharded_track: headline (denom 1) on 3 segments of 640x960 frames "
+        f"{list(D1_LENGTHS)} over {D_WORLD} ranks (gloo): records {[w['records'] for w in want]} "
+        f"and gallery sidecars equal to run_segments on the card, detections_only equal to "
+        f"run_segment's, manifest {manifest}, rerun empty; world 1 over NCCL equal on "
+        f"{plan[1]['context']}; the ranks' tracks {[round(r['seconds']['tracks'], 2) for r in ranks]} s "
+        f"and detect {[round(r['seconds']['detect'], 2) for r in ranks]} s, run_segments in this "
+        f"process {t_ref:.2f} s; launches (both ranks) {json.dumps(launches)} ({card})")
+    if launches["nms_mask"] == 0 or launches["auction"] == 0:
+        raise AssertionError("D1: a kernel did not run in the ranks")
+    del pipe
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_d2(np, torch, card, cfg, plan, out, ranks):
+    """D2: two config-4 contexts through ``run_context_groups_sharded``
+    against ``run_context_groups`` on the card."""
+    from waymo_2d_tracking_tpu_torch.pipeline.multicam import MultiCamPipeline, run_context_groups
+    from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentFrames
+
+    segs = [SegmentFrames(p["context"], p["camera"], p["timestamps"],
+                          frames=np.load(p["path"], mmap_mode="r")) for p in plan]
+    mc = MultiCamPipeline(cfg, num_cams=len(cfg.pipeline.cameras), device="cuda", seed=0)
+    ref = dist_dir("d2_ref")
+    t0 = time.perf_counter()
+    want = run_context_groups(mc, segs, ref)
+    t_ref = time.perf_counter() - t0
+    names = [f"{p['context']}_{p['camera']}.jsonl" for p in plan]
+    same_outputs(np, os.path.join(out["d2"], "contexts"), ref, names, "D2 contexts")
+    for r in ranks:
+        if [{k: v for k, v in x.items() if k != "shard"} for x in r["contexts"]] != want \
+                or r["contexts_rerun"] != [] or "pipeline expects 5" not in r["short_context"]:
+            raise AssertionError(f"D2 stats {r['contexts']}")
+    launches = sum_launches(ranks)
+    log(f"[D2] sharded_multicam: config 4, 2 contexts of 5 cameras at 1280x1920, "
+        f"{D2_FRAMES} frames, chunk {cfg.pipeline.chunk_frames}, over {D_WORLD} ranks (gloo): "
+        f"records {[w['records'] for w in want]} and sidecars equal to run_context_groups on the "
+        f"card; rerun empty; a context short of a camera refused; the ranks "
+        f"{[round(r['seconds']['contexts'], 2) for r in ranks]} s, run_context_groups in this "
+        f"process {t_ref:.2f} s; launches (both ranks) {json.dumps(launches)} ({card})")
+    if launches["nms_mask"] == 0 or launches["auction"] == 0:
+        raise AssertionError("D2: a kernel did not run in the ranks")
+    del mc
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_d3(np, torch, card, cfgs, ranks, one):
+    """D3: one data-parallel step against this process's single-device step
+    on the same global batch, for each case, beside the single-device step's
+    own spread (its batch's images reversed within each micro-batch); params
+    and EMA bit-equal across the ranks after 3 steps; the checkpoint;
+    steps/s of two ranks on one card; the world-1 NCCL step."""
+    from waymo_2d_tracking_tpu_torch.tools.rank_cases import digest, train_batch
+    from waymo_2d_tracking_tpu_torch.train.train import DetectorTrainer, _as_batch
+
+    def single(cfg, perm=None):
+        tr = DetectorTrainer(cfg, device="cuda")
+        st = tr.create_state(torch.Generator().manual_seed(0))
+        batch = train_batch(3, 16, cfg.detector.image_size, True)
+        if perm is not None:
+            batch = {k: v[perm] for k, v in batch.items()}
+        grads, stats, metrics = tr._grads_and_stats(st, _as_batch(batch, tr.device))
+        keys = [k for k in grads if not _noise_grad(k)]
+        return ({k: grads[k].detach().float().cpu() for k in keys},
+                {k: v.float().cpu() for k, v in stats.items()}, float(metrics["loss"]),
+                digest(grads))
+
+    def diff(a, b):
+        keys = sorted(b[0])
+        return {"loss": abs(a[2] - b[2]) / abs(b[2]),
+                "tensor": max(_rel_l2(torch, a[0][k], b[0][k]) for k in keys),
+                "whole": _rel_l2(torch, torch.cat([a[0][k].reshape(-1) for k in keys]),
+                                 torch.cat([b[0][k].reshape(-1) for k in keys])),
+                "stats": max(_rel_l2(torch, a[1][k], b[1][k]) for k in b[1])}
+
+    fmt = lambda d: ", ".join(f"{k} {v:.2e}" for k, v in d.items())  # noqa: E731
+    for name, cfg in cfgs.items():
+        want = single(cfg)
+        micro = 16 // cfg.train.grad_accum_steps
+        floor = diff(single(cfg, np.concatenate([np.arange(i + micro - 1, i - 1, -1)
+                                                 for i in range(0, 16, micro)])), want)
+        got = ranks[0]["cases"][name]
+        dp = diff(({k: got["grads"][k] for k in want[0]}, got["stats"], got["metrics"]["loss"]),
+                  want)
+        extra = ""
+        if name in one["cases"]:
+            o = one["cases"][name]
+            extra = (f"; the world-1 NCCL step's gradients "
+                     f"{'bit-equal to' if o['grads_digest'] == want[3] else 'differ from'} "
+                     f"this process's")
+        tol = D3_TOL[cfg.detector.dtype]
+        log(f"[D3] train_dp {name}: headline, batch 16 (8 a rank), {D_WORLD} ranks over gloo "
+            f"against the single-device step on the card (relative; largest tensor, whole "
+            f"gradient): {fmt(dp)}; the single-device step against itself with its images "
+            f"reordered: {fmt(floor)}; T1 (card against CPU, float32): 1.1e-5; bounds "
+            f"{json.dumps(tol)}{extra} ({card})")
+        if len({r["cases"][name]["grads_digest"] for r in ranks}) != 1 or any(
+                dp[k] > tol[k] for k in tol):
+            raise AssertionError(f"D3 {name}: the data-parallel step differs beyond {tol}")
+        torch.cuda.empty_cache()
+    if len({r["params_digest"] for r in ranks}) != 1 or len({r["ema_digest"] for r in ranks}) != 1:
+        raise AssertionError("D3: params or EMA differ across the ranks after 3 steps")
+    if any(r["restored_digest"] != r["params_digest"] + r["ema_digest"] for r in ranks):
+        raise AssertionError("D3: the checkpoint saved under the mesh did not restore")
+    launches = sum_launches(ranks)
+    log(f"[D3] train_dp: params and EMA bit-equal across the ranks after 3 steps; checkpoint "
+        f"restored on both; {1 / ranks[0]['step_s']:.3f} steps/s of the global batch of 16, "
+        f"bf16 ({ranks[0]['step_s'] * 1e3:.1f} ms a step) with both ranks sharing one card over "
+        f"gloo, not a scaling figure; held-out AP of the replicated weights "
+        f"{ranks[0]['val']['mAP']:.4f}, the same on both ranks: {ranks[0]['val'] == ranks[1]['val']}; "
+        f"launches (validation detects) {json.dumps(launches)} ({card})")
+    if launches["nms_mask"] == 0:
+        raise AssertionError("D3: the validation detect did not run the NMS kernel")
+    return launches
+
+
+def phase_d4(np, torch, card, cases, ranks, one, links):
+    """D4: the ring at world 2 (gloo) and 1 (NCCL) against JAX's rule
+    written out (``ring_model``), ties included; ``link_tracks`` with the
+    mesh on D1's and D2's sidecars against the dense scoring."""
+    from waymo_2d_tracking_tpu_torch.pipeline.link import link_tracks
+
+    for world, got in ((D_WORLD, ranks[0]["rings"]), (D_WORLD, ranks[1]["rings"]),
+                       (1, one["rings"])):
+        for (q, g, v), (sim, idx) in zip(cases, got):
+            wsim, widx = ring_model(np, q, g, v, world)
+            if not np.array_equal(idx, widx) or np.abs(sim - wsim).max() > 1e-5:
+                raise AssertionError(f"D4 ring at world {world} differs from JAX's rule")
+    q, g, _ = cases[1]
+    ties = int((ranks[0]["rings"][1][1] != (q @ g.T).argmax(axis=1)).sum())
+    merges = []
+    for (src, dst, th), rep in zip(links, ranks[0]["reports"]):
+        dense = os.path.join(os.path.dirname(dst), "linked_dense")
+        want = link_tracks(src, linked_dir=dense, threshold=th)
+        if {k: v for k, v in want.items() if k != "out"} != \
+                {k: v for k, v in rep.items() if k != "out"}:
+            raise AssertionError(f"D4 link report {rep} != {want}")
+        for name in os.listdir(dense):
+            with open(os.path.join(dense, name), "rb") as a, open(os.path.join(dst, name), "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"D4 linked {name} differs from the dense scoring")
+        merges.append(rep["cross_camera_merges"])
+    log(f"[D4] link_ring: 64 queries against 1024 gallery entries of 128 and the tie case, at "
+        f"world 2 (gloo) and 1 (NCCL), equal to JAX's rule (indices exact, similarities within "
+        f"1e-5); on ties {ties} of 8 queries take the first shard visited, not the lowest index; "
+        f"link_tracks with the mesh on D1's and D2's sidecars equal to the dense scoring "
+        f"(cross-camera merges {merges}) ({card})")
+
+
+def phase_d5(np, torch, card, cfg, d1_plan):
+    """D5: ``track``, ``detect``, ``link`` and ``train`` with ``--sharded``
+    as two processes started through the ``W2T_*`` variables (gloo on
+    cuda:0), against the same verbs unsharded in this process."""
+    import socket
+
+    from waymo_2d_tracking_tpu_torch.config import _update
+    from waymo_2d_tracking_tpu_torch.parallel.launch import run_ranks
+    from waymo_2d_tracking_tpu_torch.tools import rank_cases
+
+    root = dist_dir("d5")
+    segs = os.path.join(root, "segs")
+    for i, ctx in enumerate(("d5ctxA", "d5ctxB")):
+        a = np.load(d1_plan[0]["path"], mmap_mode="r")
+        write_dir_segment(np, segs, ctx, 16, [("FRONT", a[32 * i:32 * i + 16]),
+                                              ("FRONT_LEFT", a[32 * i + 16:32 * i + 32])])
+    yaml_path = write_config(_update(cfg, {
+        "pipeline": {"cameras": ["FRONT", "FRONT_LEFT"], "chunk_frames": 16},
+        "train": {"batch_size": 8, "warmup_steps": 2, "total_steps": 1000,
+                  "reid_loss_weight": 0.5}}), "d5.yaml")
+
+    def verbs(out):
+        base = ["--config", yaml_path, "--device", "cuda"]
+        return [["track", "--sharded", "--segments-dir", segs, "--out-dir", f"{out}/track"] + base,
+                ["detect", "--sharded", "--segments-dir", segs, "--out", f"{out}/det.jsonl"] + base,
+                ["link", "--sharded", "--out-dir", f"{out}/track", "--linked-dir",
+                 f"{out}/linked", "--device", "cuda"],
+                ["train", "--sharded", "--steps", "1"] + base
+                + ["--set", f"train.checkpoint_dir={out}/ckpt"]]
+
+    socks = [socket.socket() for _ in range(5)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    shd, plain = os.path.join(root, "shd"), os.path.join(root, "plain")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = run_ranks(rank_cases.cli_case, D_WORLD, "cuda", ports, verbs(shd), device="cuda",
+                      timeout=500, workdir=dist_dir("w5"), join=False)
+    wall = time.perf_counter() - t0
+    if any(r["total"] != 3.0 or not r["joined"] for r in ranks):
+        raise AssertionError("D5: the W2T_* processes did not all-reduce to 3")
+    t0 = time.perf_counter()
+    printed = [cli_quiet([a for a in argv if a != "--sharded"])[1] for argv in verbs(plain)]
+    t_plain = time.perf_counter() - t0
+    lines = lambda text: [json.loads(x) for x in text if x.startswith("{")]  # noqa: E731
+    got = [lines(o.splitlines()) for o in ranks[0]["outs"]]
+    want = [lines(p) for p in printed]
+    if any(o.strip() for o in ranks[1]["outs"]):
+        raise AssertionError("D5: process 1 printed")
+    keys = ("context", "camera", "frames", "tracks", "records")
+    if [{k: x[k] for k in keys} for x in got[0]] != [{k: x[k] for k in keys} for x in want[0]]:
+        raise AssertionError(f"D5 track stats {got[0]} != {want[0]}")
+    names = sorted(f for f in os.listdir(f"{plain}/track") if f.endswith(".jsonl")
+                   and f != "manifest.jsonl")
+    same_outputs(np, f"{shd}/track", f"{plain}/track", names, "D5 track --sharded")
+    with open(f"{shd}/det.jsonl", "rb") as a, open(f"{plain}/det.jsonl", "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("D5 detect --sharded differs from detect")
+    if {k: v for k, v in got[2][0].items() if k != "out"} != \
+            {k: v for k, v in want[2][0].items() if k != "out"}:
+        raise AssertionError(f"D5 link {got[2]} != {want[2]}")
+    same_outputs(np, f"{shd}/linked", f"{plain}/linked", sorted(os.listdir(f"{plain}/linked")),
+                 "D5 link --sharded")
+    eg = torch.load(got[3][0]["export"], weights_only=True)
+    ew = torch.load(want[3][0]["export"], weights_only=True)
+    stats_d = max(_rel_l2(torch, eg[k].float(), ew[k].float()) for k in ew
+                  if k.endswith(("running_mean", "running_var")))
+    params_equal = all(torch.equal(eg[k], ew[k]) for k in ew
+                       if not k.endswith(("running_mean", "running_var", "num_batches_tracked")))
+    launches = sum_launches(ranks)
+    tol = D3_TOL[cfg.detector.dtype]["stats"]
+    log(f"[D5] cli_sharded: track, detect, link and train --steps 1 with --sharded as {D_WORLD} "
+        f"processes through W2T_* (gloo on cuda:0; all-reduce of pid + 1 gave 3 in both) in "
+        f"{wall:.1f} s, the same verbs unsharded in this process in {t_plain:.1f} s: tracks, "
+        f"sidecars, merged detections and linked files equal; train's export parameters "
+        f"{'bit-equal' if params_equal else 'DIFFER'} (the first update's rate is 0), its "
+        f"BatchNorm statistics within {stats_d:.2e} (bound {tol}, D3's); launches (both processes) "
+        f"{json.dumps(launches)} ({card})")
+    if not params_equal or stats_d > tol:
+        raise AssertionError("D5: train --sharded differs from train")
+    if launches["nms_mask"] == 0 or launches["auction"] == 0:
+        raise AssertionError("D5: a kernel did not run in the processes")
+    return launches
+
+
 
 def main() -> int:
     # cuBLAS's deterministic workspace, read when its handle is made: T2's
@@ -2733,7 +3236,8 @@ def main() -> int:
     log(f"[S1] done in {time.perf_counter() - t0:.1f} s")
     phase_ingest(np, torch, smi, HEADLINE_INT8)
     paths, headline_frames = phase_headlines(np, torch, counters, smi)
-    paths.update(phase_new_paths(np, torch, counters, smi, headline_frames))
+    plans = {"d1": save_d1_frames(np, headline_frames)}
+    paths.update(phase_new_paths(np, torch, counters, smi, headline_frames, plans))
     paths["serve_fixture"] = serve_fixture
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2743,6 +3247,13 @@ def main() -> int:
     del headline_frames
     torch.cuda.empty_cache()
     paths["train"] = phase_train(np, torch, counters, smi, nms, committed)
+    t0 = time.perf_counter()
+    try:
+        paths.update(phase_distributed(np, torch, smi, plans["d1"], plans["d2"]))
+    finally:
+        # the frames, outputs and checkpoints of D (gigabytes) are not kept
+        shutil.rmtree(dist_dir(), ignore_errors=True)
+    log(f"[D] done in {time.perf_counter() - t0:.1f} s")
     # neither the top-k threshold nor the RoIAlign kernel is on a main path
     # (the JAX package runs them only through their own entry points); their
     # counts are 0 there and are reported as they are

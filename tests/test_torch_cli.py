@@ -1,8 +1,9 @@
 """The port's command line (``cli.py``) against the JAX package's ``w2t`` on
 the same inputs: the verbs that need no detector (track --from-detections,
 tune, interp, eval with --hota / --per-class / --workers / --ignore, eval-det,
-submit, import-mot, export-mot), the verb list, ``doctor``, the flags the
-port refuses (``--sharded``) and the card default of ``--device``."""
+submit, import-mot, export-mot), the verb list, ``doctor``, ``--sharded`` on a
+world of one and its refusal under ``--online``, and the card default of
+``--device``."""
 import dataclasses
 import json
 import os
@@ -170,13 +171,48 @@ def test_mot_import_export_and_ignore_match_jax(files, tmp_path, capsys):
                   "--context", "X"])
 
 
-def test_sharded_flags_raise(files, tmp_path):
-    for argv in (["track", "--sharded", "--segments-dir", str(tmp_path)],
-                 ["detect", "--sharded", "--segments-dir", str(tmp_path)],
-                 ["train", "--sharded", "--steps", "1"],
-                 ["link", "--sharded", "--out-dir", str(tmp_path)]):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            cli.main(argv + (["--device", "cpu"] if argv[0] != "link" else []))
+def test_sharded_flags_raise(files, tmp_path, capsys):
+    """``track --online --sharded`` is refused with the JAX package's
+    message; without the ``W2T_*`` variables the ``--sharded`` verbs run on
+    a world of one (made and torn down by the verb) and equal the unsharded
+    verbs (two processes: ``tests/test_torch_cli_sharded.py``)."""
+    import torch.distributed as dist
+    from waymo_2d_tracking_tpu.data import waymo as jwaymo
+
+    with pytest.raises(SystemExit, match="does not compose with --sharded"):
+        cli.main(["track", "--online", "--sharded", "--segments-dir", str(tmp_path),
+                  "--device", "cpu"])
+    frames = np.random.default_rng(0).integers(0, 255, (3, 64, 96, 3), dtype=np.uint8)
+    jwaymo.materialize_directory_segment(str(tmp_path / "segs"), "segA", frames,
+                                         [100 * t for t in range(3)])
+    tiny = ["--set", "detector.backbone=resnet18slim", "detector.image_size=[64,96]",
+            "detector.fpn_channels=32", "detector.head_depth=1", "detector.embed_dim=8",
+            "detector.dtype=float32", "detector.score_threshold=0.01", "tracker.embed_dim=8",
+            "tracker.max_detections=100", "pipeline.chunk_frames=2", "train.batch_size=2",
+            "train.warmup_steps=2"]
+    outs = {}
+    for tag in ("plain", "sharded"):
+        d = tmp_path / tag
+        flag = ["--sharded"] if tag == "sharded" else []
+        for argv in (["track", "--segments-dir", str(tmp_path / "segs"), "--out-dir",
+                      str(d / "trk")], ["detect", "--segments-dir", str(tmp_path / "segs"),
+                                        "--out", str(d / "det.jsonl")],
+                     ["train", "--steps", "1"], ["link", "--out-dir", str(d / "trk")]):
+            extra = ["--device", "cpu"] + (tiny + [f"train.checkpoint_dir={d}/ckpt"]
+                                           if argv[0] != "link" else [])
+            outs[(tag, argv[0])] = _run(cli.main, argv + flag + extra, capsys)
+            assert not dist.is_initialized()
+    for verb in ("detect", "link"):
+        strip = lambda s: {k: v for k, v in json.loads(s.splitlines()[-1]).items()  # noqa: E731
+                           if k != "out"}
+        assert strip(outs[("sharded", verb)]) == strip(outs[("plain", verb)])
+    got, want = json.loads(outs[("sharded", "track")]), json.loads(outs[("plain", "track")])
+    assert got["shard"] == 0 and got["records"] == want["records"]
+    for name in ("trk/segA_1.jsonl", "det.jsonl"):
+        assert open(tmp_path / "sharded" / name).read() == open(tmp_path / "plain" / name).read()
+    export = {tag: torch.load(tmp_path / tag / "ckpt" / "export", weights_only=True)
+              for tag in ("plain", "sharded")}
+    assert all(torch.equal(export["sharded"][k], v) for k, v in export["plain"].items())
 
 
 def test_device_defaults_to_the_card(files, tmp_path):

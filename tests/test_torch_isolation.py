@@ -60,7 +60,9 @@ def test_port_imports_no_jax_in_a_fresh_process():
                 "data.waymo", "utils.protolite", "train.losses", "train.train", "eval.ap",
                 "data.coco", "cli", "pipeline.server", "pipeline.tune", "io_out.export",
                 "data.video", "utils.profiling", "utils.compile_cache", "eval.hota",
-                "io_out.motchallenge", "utils.viz", "train.port_torch"):
+                "io_out.motchallenge", "utils.viz", "train.port_torch", "parallel.sharding",
+                "parallel.multihost", "parallel.ring", "parallel.collectives", "parallel.launch",
+                "pipeline.sharded"):
         assert f"waymo_2d_tracking_tpu_torch.{new}" in mods, new
 
 
@@ -179,9 +181,10 @@ def test_entry_points_need_a_card_unless_cpu():
 
 
 def test_later_slices_raise_not_implemented():
-    """The mesh-sharded gallery scoring is a later slice and raises; int8,
-    JPEG frames (malformed bytes raise a ValueError, not NotImplementedError),
-    the CenterNet head family, TTA and output gap interpolation are ported and
+    """The mesh-sharded gallery scoring refuses a ``mesh`` that is not a
+    ``DeviceMesh`` (it runs in ``tests/test_torch_parallel.py``); int8, JPEG
+    frames (malformed bytes raise a ValueError, not NotImplementedError), the
+    CenterNet head family, TTA and output gap interpolation are ported and
     build on the CPU."""
     from waymo_2d_tracking_tpu_torch.config import Config
     from waymo_2d_tracking_tpu_torch.models.centernet import CenterNetHeads
@@ -192,7 +195,7 @@ def test_later_slices_raise_not_implemented():
     from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentPipeline, tta_active
 
     base = Config()
-    with pytest.raises(NotImplementedError, match="distributed"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         best_cross_camera_matches({}, mesh=object())
     small = {"backbone": "resnet18slim", "image_size": [64, 64], "fpn_channels": 32,
              "fpn_levels": [3, 4, 5], "head_depth": 1, "embed_dim": 0}

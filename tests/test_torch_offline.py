@@ -10,6 +10,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from waymo_2d_tracking_tpu.config import Config as JaxConfig
 from waymo_2d_tracking_tpu.config import PipelineConfig as JaxPipelineConfig
@@ -26,6 +27,7 @@ from waymo_2d_tracking_tpu_torch.config import (
     TrackerConfig,
 )
 from waymo_2d_tracking_tpu_torch.io_out import submission
+from waymo_2d_tracking_tpu_torch.parallel.sharding import make_mesh
 from waymo_2d_tracking_tpu_torch.pipeline import link, offline
 from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentFrames, SegmentPipeline, run_segments
 
@@ -165,5 +167,15 @@ def test_link_tracks_matches_jax(tmp_path):
     assert got["cross_camera_merges"] >= 4
     for name in sorted(os.listdir(tmp_path / "jax")):
         assert open(tmp_path / "port" / name).read() == open(tmp_path / "jax" / name).read()
-    with pytest.raises(NotImplementedError, match="distributed"):
+    # the ring-sharded scoring on a world of one equals the dense scoring
+    mesh = make_mesh(device="cpu")
+    try:
+        ring = link.link_tracks(out, str(tmp_path / "ring"), mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    assert {k: v for k, v in ring.items() if k != "out"} == \
+        {k: v for k, v in got.items() if k != "out"}
+    for name in sorted(os.listdir(tmp_path / "port")):
+        assert open(tmp_path / "ring" / name).read() == open(tmp_path / "port" / name).read()
+    with pytest.raises(TypeError, match="DeviceMesh"):
         link.link_tracks(out, mesh=object())

@@ -321,8 +321,10 @@ def test_initializer_std_matches_flax():
 
 
 def test_trainer_refuses_mesh_and_needs_a_card():
+    """A ``mesh`` that is not a (data, model) ``DeviceMesh`` is refused (the
+    data-parallel trainer itself: ``tests/test_torch_train_dp.py``)."""
     cfg = Config(detector=DetectorConfig(**TINY), train=TrainConfig(**TRAIN))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         DetectorTrainer(cfg, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):

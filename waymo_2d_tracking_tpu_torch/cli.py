@@ -23,20 +23,25 @@ The port adds:
 - ``export`` (also ``export-savedmodel``): a ``torch.export`` program
   (``io_out/export.py``), ``--platform {cpu,cuda}``.
 
-``--sharded`` (track, detect), ``link --sharded`` and ``train --sharded``
-raise ``NotImplementedError``: the distributed modules are ROADMAP Queue 1
-item 9. ``bench`` is not a verb of the port (ROADMAP Queue 1 item 2).
+``--sharded`` (``track``, ``track --multicam``, ``detect``, ``link``,
+``train``) runs one process a card: start one process for each card with
+``W2T_COORDINATOR=host:port W2T_NUM_PROCESSES=N W2T_PROCESS_ID=i`` (and
+``W2T_BACKEND`` to pick ``gloo`` over the default NCCL for CUDA;
+``parallel/multihost.py``). Without the variables the verb runs on a world of
+one on ``--device``, which equals the unsharded verb. The writing rank
+prints. ``bench`` is not a verb of the port (ROADMAP Queue 1 item 2).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
 from typing import List, Optional
 
-_SHARDED = ("--sharded needs the distributed modules (parallel/, pipeline/sharded.py), "
-            "which the port does not have yet (ROADMAP Queue 1 item 9)")
+_ONLINE_SHARDED = ("--online is a single-host serving path; it does not compose with "
+                   "--sharded (fan streams across processes instead, one OnlineTracker per chip)")
 
 
 def _parse_overrides(pairs: List[str]) -> dict:
@@ -62,9 +67,23 @@ def _load_config(args):
     return load_config(args.config, _parse_overrides(args.set or []))
 
 
-def _no_sharded(args) -> None:
-    if getattr(args, "sharded", False):
-        raise NotImplementedError(_SHARDED)
+@contextlib.contextmanager
+def _mesh_session(args):
+    """The mesh of a ``--sharded`` verb: over every process started with the
+    ``W2T_*`` variables, else a world of one on ``--device``. A process group
+    this verb made is destroyed when it ends."""
+    import torch.distributed as dist
+
+    from waymo_2d_tracking_tpu_torch.parallel import multihost, sharding
+
+    made = not dist.is_initialized()
+    if made:
+        multihost.initialize_multihost(device=args.device)
+    try:
+        yield sharding.make_mesh(device=args.device)
+    finally:
+        if made and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _enable_compile_cache(args) -> str:
@@ -105,40 +124,62 @@ def cmd_track(args):
     cfg = _load_config(args)
     if args.from_detections:
         return _track_from_detections(cfg, args)
-    _no_sharded(args)
     _enable_compile_cache(args)
     from waymo_2d_tracking_tpu_torch.utils.profiling import trace
 
     if args.video:
         args.online = True  # a video file is a stream
     if args.online:
+        if args.sharded:
+            raise SystemExit(_ONLINE_SHARDED)
         with trace(args.profile):
             return _track_online(cfg, args)
+    if args.sharded:
+        with _mesh_session(args) as mesh:
+            return _track_chunked(cfg, args, mesh)
+    return _track_chunked(cfg, args, None)
+
+
+def _track_chunked(cfg, args, mesh):
+    """The chunked drivers, unsharded (``mesh`` None) or fanned over the
+    mesh's ranks (``pipeline/sharded.py``)."""
     from waymo_2d_tracking_tpu_torch.data.waymo import iter_segments
+    from waymo_2d_tracking_tpu_torch.parallel.sharding import is_writer
+    from waymo_2d_tracking_tpu_torch.utils.profiling import trace
 
     sd = _params(args, cfg)
     segments = iter_segments(args.segments_dir, cameras=cfg.pipeline.cameras)
+    fail_after = args.fail_after_n_segments
     if args.multicam:
         from waymo_2d_tracking_tpu_torch.pipeline.multicam import (
             MultiCamPipeline,
             run_context_groups,
         )
+        from waymo_2d_tracking_tpu_torch.pipeline.sharded import run_context_groups_sharded
 
         pipeline = MultiCamPipeline(cfg, num_cams=len(cfg.pipeline.cameras), state_dict=sd,
                                     device=args.device, seed=args.seed)
         with trace(args.profile):
-            for s in run_context_groups(pipeline, segments, args.out_dir,
-                                        fail_after=args.fail_after_n_segments):
-                print(json.dumps(s))
-        return
-    from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentPipeline, run_segments
+            if mesh is None:
+                stats = run_context_groups(pipeline, segments, args.out_dir,
+                                           fail_after=fail_after)
+            else:
+                stats = run_context_groups_sharded(pipeline, segments, args.out_dir, mesh=mesh,
+                                                   fail_after=fail_after)
+    else:
+        from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentPipeline, run_segments
+        from waymo_2d_tracking_tpu_torch.pipeline.sharded import run_segments_sharded
 
-    pipeline = SegmentPipeline(cfg, sd, device=args.device, seed=args.seed)
-    with trace(args.profile):
-        stats = run_segments(pipeline, segments, args.out_dir,
-                             fail_after=args.fail_after_n_segments)
-    for s in stats:
-        print(json.dumps(s))
+        pipeline = SegmentPipeline(cfg, sd, device=args.device, seed=args.seed)
+        with trace(args.profile):
+            if mesh is None:
+                stats = run_segments(pipeline, segments, args.out_dir, fail_after=fail_after)
+            else:
+                stats = run_segments_sharded(pipeline, segments, args.out_dir, mesh=mesh,
+                                             fail_after=fail_after)
+    if mesh is None or is_writer(mesh):
+        for s in stats:
+            print(json.dumps(s))
 
 
 def _track_online(cfg, args):
@@ -280,8 +321,10 @@ def _track_from_detections(cfg, args):
 
 
 def cmd_detect(args):
-    """Detection only: per-frame detections JSONL."""
-    _no_sharded(args)
+    """Detection only: per-frame detections JSONL. With ``--sharded`` the
+    segments fan over the ranks into per-segment files in ``--out-dir``
+    (default ``<out>.d``), and exactly this run's segments are merged into
+    ``--out``."""
     _enable_compile_cache(args)
     from waymo_2d_tracking_tpu_torch.data.waymo import iter_segments
     from waymo_2d_tracking_tpu_torch.io_out import submission as subm
@@ -289,15 +332,61 @@ def cmd_detect(args):
     from waymo_2d_tracking_tpu_torch.utils.profiling import trace
 
     cfg = _load_config(args)
-    pipeline = SegmentPipeline(cfg, _params(args, cfg), device=args.device, seed=args.seed)
-    records = []
-    with trace(args.profile):
-        for seg in iter_segments(args.segments_dir, cameras=cfg.pipeline.cameras):
-            recs, stats = pipeline.run_segment(seg, detections_only=True)
-            records.extend(recs)
-            print(json.dumps(stats), file=sys.stderr)
+    segments = iter_segments(args.segments_dir, cameras=cfg.pipeline.cameras)
+    if args.sharded:
+        with _mesh_session(args) as mesh, trace(args.profile):
+            # made once this process holds its rank's card
+            pipeline = SegmentPipeline(cfg, _params(args, cfg), device=args.device,
+                                       seed=args.seed)
+            records = _detect_sharded(pipeline, segments, args, mesh)
+        if records is None:
+            return
+    else:
+        pipeline = SegmentPipeline(cfg, _params(args, cfg), device=args.device, seed=args.seed)
+        records = []
+        with trace(args.profile):
+            for seg in segments:
+                recs, stats = pipeline.run_segment(seg, detections_only=True)
+                records.extend(recs)
+                print(json.dumps(stats), file=sys.stderr)
     n = subm.write_jsonl(args.out, records)
     print(json.dumps({"records": n, "out": args.out}))
+
+
+def _detect_sharded(pipeline, segments, args, mesh):
+    """``detect --sharded``: the stateless fan-out, then the merge of the
+    segment files of exactly the segments this run was given (manifest-resumed
+    ones included, stale keys of an earlier run in the same ``--out-dir``
+    not). Returns the merged records on the writing rank, None elsewhere."""
+    from waymo_2d_tracking_tpu_torch.io_out import submission as subm
+    from waymo_2d_tracking_tpu_torch.parallel.sharding import is_writer
+    from waymo_2d_tracking_tpu_torch.pipeline.manifest import segment_key
+    from waymo_2d_tracking_tpu_torch.pipeline.sharded import run_segments_sharded
+
+    out_dir = args.out_dir or (args.out + ".d")
+    seen_keys = []
+
+    def recording(it):
+        for seg in it:
+            seen_keys.append((seg.context_name, seg.camera_name))
+            yield seg
+
+    stats = run_segments_sharded(pipeline, recording(segments), out_dir, mesh=mesh,
+                                 detections_only=True)
+    if not is_writer(mesh):
+        return None
+    records = []
+    for ctx, cam in seen_keys:
+        seg_file = os.path.join(out_dir, f"{ctx}_{cam}.jsonl")
+        if not os.path.exists(seg_file):
+            raise FileNotFoundError(
+                f"detect --sharded: {seg_file} missing for completed segment "
+                f"{segment_key(ctx, cam)} -- out-dir partially cleaned? delete its "
+                "manifest.jsonl line to recompute")
+        records.extend(subm.read_jsonl(seg_file))
+    for s in stats:
+        print(json.dumps(s), file=sys.stderr)
+    return records
 
 
 def cmd_submit(args):
@@ -557,9 +646,17 @@ def cmd_eval_det(args):
 def cmd_train(args):
     """Train the detector (``train/train.py train_loop``) on COCO-converted
     data or synthetic batches; writes checkpoints and the serving state dict
-    ``<checkpoint_dir>/export`` (the EMA parameters where enabled)."""
-    _no_sharded(args)
+    ``<checkpoint_dir>/export`` (the EMA parameters where enabled). With
+    ``--sharded``, data parallel over the ranks (every rank draws the same
+    global batches); the writing rank saves and prints."""
     _enable_compile_cache(args)
+    if args.sharded:
+        with _mesh_session(args) as mesh:
+            return _train(args, mesh)
+    return _train(args, None)
+
+
+def _train(args, mesh):
     import numpy as np
     import torch
 
@@ -567,7 +664,7 @@ def cmd_train(args):
     from waymo_2d_tracking_tpu_torch.train.train import DetectorTrainer, train_loop
 
     cfg = _load_config(args)
-    trainer = DetectorTrainer(cfg, device=args.device)
+    trainer = DetectorTrainer(cfg, mesh=mesh, device=args.device)
     hw = tuple(cfg.detector.image_size)
     if args.data_dir:
         from waymo_2d_tracking_tpu_torch.data.coco import coco_batch_iterator
@@ -606,17 +703,27 @@ def cmd_train(args):
                        generator=torch.Generator().manual_seed(args.seed))
     trainer.save_checkpoint(state)
     export = os.path.abspath(os.path.join(cfg.train.checkpoint_dir, "export"))
-    torch.save({k: v.cpu() for k, v in trainer.eval_variables(state).items()}, export)
-    print(json.dumps({"step": int(state.step), "export": export}))
+    if trainer.is_writer:
+        torch.save({k: v.cpu() for k, v in trainer.eval_variables(state).items()}, export)
+        print(json.dumps({"step": int(state.step), "export": export}))
 
 
 def cmd_link(args):
-    """Cross-camera identity linking over track files and their galleries."""
-    _no_sharded(args)
+    """Cross-camera identity linking over track files and their galleries;
+    ``--sharded`` scores through the ring-sharded gallery over the ranks."""
     from waymo_2d_tracking_tpu_torch.pipeline.link import link_tracks
 
-    print(json.dumps(link_tracks(args.out_dir, linked_dir=args.linked_dir,
-                                 threshold=args.threshold)))
+    if not args.sharded:
+        print(json.dumps(link_tracks(args.out_dir, linked_dir=args.linked_dir,
+                                     threshold=args.threshold)))
+        return
+    from waymo_2d_tracking_tpu_torch.parallel.sharding import is_writer
+
+    with _mesh_session(args) as mesh:
+        report = link_tracks(args.out_dir, linked_dir=args.linked_dir,
+                             threshold=args.threshold, mesh=mesh)
+        if is_writer(mesh):
+            print(json.dumps(report))
 
 
 def cmd_draw(args):
@@ -813,7 +920,7 @@ def build_parser():
     sp.add_argument("--multicam", action="store_true",
                     help="shared-backbone multi-camera batching (config 4)")
     sp.add_argument("--sharded", action="store_true",
-                    help="fan segments across devices (not in the port yet)")
+                    help="fan segments (or --multicam contexts) across the ranks, one a rank")
     sp.add_argument("--online", action="store_true",
                     help="streaming path: one frame per device step; stats report "
                          "p50/p90/p99 serving latency")
@@ -829,8 +936,9 @@ def build_parser():
     sp.add_argument("--segments-dir", required=True)
     sp.add_argument("--out", default="detections.jsonl")
     sp.add_argument("--sharded", action="store_true",
-                    help="fan segments across devices (not in the port yet)")
-    sp.add_argument("--out-dir", default=None, help="per-segment output dir for --sharded")
+                    help="fan segments across the ranks (stateless), merged into --out")
+    sp.add_argument("--out-dir", default=None,
+                    help="per-segment output dir for --sharded (default <out>.d)")
     sp.set_defaults(fn=cmd_detect)
 
     sp = sub.add_parser("submit", help="JSONL -> Waymo submission pb")
@@ -909,7 +1017,8 @@ def build_parser():
     common(sp)
     sp.add_argument("--data-dir", default=None, help="COCO-converted data")
     sp.add_argument("--steps", type=int, default=None)
-    sp.add_argument("--sharded", action="store_true", help="(not in the port yet)")
+    sp.add_argument("--sharded", action="store_true",
+                    help="data parallel over the ranks (W2T_* variables; else a world of one)")
     sp.add_argument("--val-every", type=int, default=0, dest="val_every",
                     help="held-out detection-AP validation every N steps (0 disables)")
     sp.add_argument("--val-dir", default=None, dest="val_dir",
@@ -922,7 +1031,10 @@ def build_parser():
                     help="track output dir (with .gallery.npz sidecars)")
     sp.add_argument("--linked-dir", default=None)
     sp.add_argument("--threshold", type=float, default=0.6)
-    sp.add_argument("--sharded", action="store_true", help="(not in the port yet)")
+    sp.add_argument("--sharded", action="store_true",
+                    help="score through the ring-sharded gallery over the ranks")
+    sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="where --sharded scores (default cuda)")
     sp.set_defaults(fn=cmd_link)
 
     sp = sub.add_parser("draw", help="render track boxes onto frames (debug; OpenCV)")

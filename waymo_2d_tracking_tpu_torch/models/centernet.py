@@ -24,6 +24,7 @@ from torch import nn
 
 from waymo_2d_tracking_tpu_torch.models.heads import HeadTower, _nhwc
 from waymo_2d_tracking_tpu_torch.ops.nms import topk_stable
+from waymo_2d_tracking_tpu_torch.parallel.collectives import sum_detached
 
 PRIOR_BIAS = -4.595   # sigmoid prior p = 0.01 on the class / heat logits
 
@@ -155,8 +156,9 @@ def penalty_reduced_focal(pred_logits, heat_t, alpha: float = 2.0, beta: float =
 
 
 def centernet_loss(head_out, gt_boxes, gt_classes, gt_valid, num_classes: int,
-                   wh_weight: float = 0.1, off_weight: float = 1.0):
-    """Total CenterNet loss over a batch (``fcos_loss``'s contract)."""
+                   wh_weight: float = 0.1, off_weight: float = 1.0, group=None):
+    """Total CenterNet loss over a batch (``fcos_loss``'s contract, ``group``
+    included: this rank's share, normalised by the global positives)."""
     ((lvl, (heat, wh, off)),) = head_out.items()
     stride = 2 ** lvl
     n, h, w, k = heat.shape
@@ -171,6 +173,8 @@ def centernet_loss(head_out, gt_boxes, gt_classes, gt_valid, num_classes: int,
     loss_off = torch.sum(torch.abs(off_p - off_t) * m)
 
     num_pos = pos.float().sum()
+    if group is not None:
+        num_pos = sum_detached(num_pos, group)
     norm = torch.clamp(num_pos, min=1.0)
     loss_heat = loss_heat / norm
     loss_wh = wh_weight * loss_wh / norm

@@ -30,6 +30,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from waymo_2d_tracking_tpu_torch.models.quant import make_conv
+from waymo_2d_tracking_tpu_torch.parallel.collectives import all_gather_rows
 
 BN_MOMENTUM = 0.9     # flax's decay of the running statistics
 BN_EPS = 1e-5
@@ -65,17 +66,30 @@ class BatchNorm2d(nn.BatchNorm2d):
     to the input dtype, and the running statistics become
     ``0.9 * running + 0.1 * batch`` (flax's momentum is torch's 1 - momentum,
     and torch would fold in the unbiased variance). Under remat the
-    recompute leaves them alone."""
+    recompute leaves them alone.
+
+    The statistics are summed per image, then over the images. Data-parallel
+    training sets ``process_group`` (``train/train.py``): the per-image sums
+    of every rank are then gathered in rank order (one differentiable
+    collective) and summed, so the statistics are the global batch's, the same
+    bits on every rank and the bits the single-device step computes on the
+    global batch, which keeps a ReLU input near zero on the same side in both."""
 
     def __init__(self, c: int):
         super().__init__(c, eps=BN_EPS)
+        self.process_group = None
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
         xf = x.float()
-        mean = xf.mean(dim=(0, 2, 3))
-        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        # per-image sums of x and x^2, (N, 2, C), summed over the images
+        per_image = torch.stack([xf.sum(dim=(2, 3)), (xf * xf).sum(dim=(2, 3))], dim=1)
+        if self.process_group is not None:
+            per_image = all_gather_rows(per_image, self.process_group)
+        count = per_image.shape[0] * xf.shape[2] * xf.shape[3]
+        mean, mean2 = (per_image.sum(dim=0) / count).unbind(0)
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
         if not getattr(_REMAT, "recomputing", False):
             with torch.no_grad():
                 self.running_mean.mul_(BN_MOMENTUM).add_(mean.detach() * (1.0 - BN_MOMENTUM))

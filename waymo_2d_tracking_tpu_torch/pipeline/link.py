@@ -8,9 +8,11 @@ write) are scored against every other camera's; mutual cosine best matches
 above a threshold merge by union-find into global ids, and the per-camera
 track files are rewritten with ``g{n}`` object ids.
 
-Scoring is the dense host matmul. The JAX package also scores through a
-ring-sharded gallery on a device mesh (``mesh=``); that is the distributed
-slice of the port, and ``mesh=`` raises ``NotImplementedError`` here.
+Scoring is the dense host matmul, or, with ``mesh=`` (a ``DeviceMesh`` from
+``parallel/sharding.py make_mesh``), the ring-sharded gallery of
+``parallel/ring.py`` over the mesh's ranks, the queries and the gallery
+padded to sizes the data axis divides. Every rank then computes the same
+mapping; the rank at (data 0, model 0) writes the linked files.
 """
 from __future__ import annotations
 
@@ -21,8 +23,11 @@ import re
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 from waymo_2d_tracking_tpu_torch.io_out import submission as subm
+from waymo_2d_tracking_tpu_torch.parallel.ring import ring_gallery_topmatch
+from waymo_2d_tracking_tpu_torch.parallel.sharding import barrier, check_mesh, data_size, is_writer
 from waymo_2d_tracking_tpu_torch.types import SLOT_EMPTY
 
 
@@ -40,14 +45,6 @@ class _UnionFind:
         ra, rb = self.find(a), self.find(b)
         if ra != rb:
             self.parent[rb] = ra
-
-
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= scores through the ring-sharded gallery, part of the "
-            "distributed slice of the port (parallel/*), not ported yet; "
-            "pass mesh=None for the dense scoring")
 
 
 def write_gallery_sidecar(path_jsonl: str, state, cam_index=None) -> None:
@@ -87,9 +84,10 @@ def best_cross_camera_matches(
     mesh=None,
 ) -> List[Tuple[int, int, int, int, float]]:
     """For each track, its best match among all other cameras' tracks, by a
-    dense matmul. Returns rows (cam, track_id, other_cam, other_track_id,
-    cosine_sim)."""
-    _no_mesh(mesh)
+    dense matmul or, with ``mesh``, the ring-sharded gallery. Returns rows
+    (cam, track_id, other_cam, other_track_id, cosine_sim)."""
+    if mesh is not None:
+        check_mesh(mesh)
     cam_ids = sorted(cams)
     all_ids: List[Tuple[int, int]] = []   # (camera, track_id) per gallery row
     embeds: List[np.ndarray] = []
@@ -108,17 +106,37 @@ def best_cross_camera_matches(
         if len(ids) == 0:
             continue
         valid = cam_of_row != c                    # exclude own camera
-        s = queries.astype(np.float32) @ gallery.T            # (Q, N)
-        s[:, ~valid] = -2.0
-        idx = s.argmax(axis=1)
-        sims = s[np.arange(len(ids)), idx]
-        idx = np.where(sims <= -2.0, -1, idx)
+        if mesh is not None:
+            sims, idx = _ring_scores(queries.astype(np.float32), gallery, valid, mesh)
+        else:
+            s = queries.astype(np.float32) @ gallery.T            # (Q, N)
+            s[:, ~valid] = -2.0
+            idx = s.argmax(axis=1)
+            sims = s[np.arange(len(ids)), idx]
+            idx = np.where(sims <= -2.0, -1, idx)
         for q, (g, sim) in enumerate(zip(idx, sims)):
             if g < 0:
                 continue
             oc, ot = all_ids[int(g)]
             rows.append((c, int(ids[q]), oc, ot, float(sim)))
     return rows
+
+
+def _ring_scores(queries: np.ndarray, gallery: np.ndarray, valid: np.ndarray, mesh):
+    """(sims, idx) of ``queries`` against the ring-sharded ``gallery``, both
+    zero-padded to sizes the data axis divides (padded gallery rows are
+    invalid; an index past the real gallery is -1)."""
+    n_dev = data_size(mesh)
+    q, e = queries.shape
+    n = gallery.shape[0]
+    queries_p = np.concatenate([queries, np.zeros(((-q) % n_dev, e), np.float32)])
+    gallery_p = np.concatenate([gallery, np.zeros(((-n) % n_dev, e), np.float32)])
+    valid_p = np.concatenate([valid, np.zeros(((-n) % n_dev,), bool)])
+    sims, idx = ring_gallery_topmatch(torch.from_numpy(queries_p), torch.from_numpy(gallery_p),
+                                      torch.from_numpy(valid_p), mesh)
+    sims = sims.cpu().numpy()[:q]
+    idx = idx.cpu().numpy()[:q]
+    return sims, np.where(idx >= n, -1, idx)
 
 
 def link_context(
@@ -159,19 +177,22 @@ def link_tracks(
 ) -> dict:
     """Rewrite the per-(context, camera) track files of ``out_dir`` with
     unified global ids into ``linked_dir``. Returns a report: contexts,
-    tracks, merged groups."""
-    _no_mesh(mesh)
+    tracks, merged groups. With ``mesh`` every rank scores through the ring
+    and returns the report; the rank at (data 0, model 0) writes."""
+    writer = True
+    if mesh is not None:
+        writer = is_writer(check_mesh(mesh))
     linked_dir = linked_dir or os.path.join(out_dir, "linked")
     os.makedirs(linked_dir, exist_ok=True)
     galleries = load_galleries(out_dir)
     n_tracks = n_merged = 0
     for ctx, cams in sorted(galleries.items()):
-        mapping = link_context(cams, threshold=threshold)
+        mapping = link_context(cams, threshold=threshold, mesh=mesh)
         n_tracks += len(mapping)
         n_merged += len(mapping) - len(set(mapping.values()))
         for cam in sorted(cams):
             src = os.path.join(out_dir, f"{ctx}_{cam}.jsonl")
-            if not os.path.exists(src):
+            if not writer or not os.path.exists(src):
                 continue
             out = []
             for r in subm.read_jsonl(src):
@@ -183,6 +204,8 @@ def link_tracks(
                 gid = mapping.get((cam, tid)) if tid is not None else None
                 out.append(r if gid is None else dataclasses.replace(r, object_id=gid))
             subm.write_jsonl(os.path.join(linked_dir, f"{ctx}_{cam}.jsonl"), out)
+    if mesh is not None:
+        barrier(mesh)     # the linked files exist on every rank's return
     return {
         "contexts": len(galleries),
         "tracks": n_tracks,

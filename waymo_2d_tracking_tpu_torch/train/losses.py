@@ -8,13 +8,24 @@ index (``argmin``'s first minimum, as ``jnp.argmin``). Losses: sigmoid focal
 all levels in float32 and normalised by the number of positives. The ReID
 objectives (batch-hard triplet, supervised contrastive) take the GT-box
 embeddings of ``Detector.forward_train``.
+
+Under data parallelism (``group``, the data axis's process group) each rank
+holds a shard of the batch and its losses are its share of the global loss:
+the positives normaliser is the global count, and a ReID anchor (one of the
+rank's own GT boxes) is scored against every rank's embeddings (gathered,
+differentiably) and divided by the global count of active anchors. Summed
+over the ranks, the losses and their gradients are the single-device ones on
+the global batch.
 """
 from __future__ import annotations
 
 from typing import Dict, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from waymo_2d_tracking_tpu_torch.parallel.collectives import all_gather_rows, sum_detached
 
 # FCOS level regression ranges (in image pixels, by pyramid level)
 LEVEL_RANGES = {3: (0.0, 64.0), 4: (64.0, 128.0), 5: (128.0, 256.0),
@@ -116,8 +127,10 @@ def fcos_loss(
     num_classes: int,
     focal_alpha: float = 0.25,
     focal_gamma: float = 2.0,
+    group=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Total FCOS loss over a batch and all levels (head outputs NHWC)."""
+    """Total FCOS loss over a batch and all levels (head outputs NHWC); with
+    ``group``, this rank's share, normalised by the global positives."""
     total_cls = total_box = total_ctr = total_pos = 0.0
     gt_boxes = gt_boxes.float()
     for lvl, (cls_logits, ltrb_pred, ctr_logits) in head_out.items():
@@ -141,6 +154,8 @@ def fcos_loss(
         total_ctr = total_ctr + torch.sum(optax_sigmoid_ce(ctr_flat, ctr_t) * posf)
         total_pos = total_pos + torch.sum(posf)
 
+    if group is not None:
+        total_pos = sum_detached(total_pos, group)
     norm = _maximum(total_pos, 1.0)
     loss_cls = total_cls / norm
     loss_box = total_box / norm
@@ -150,47 +165,65 @@ def fcos_loss(
                   "loss_ctr": loss_ctr, "num_pos": total_pos}
 
 
-def _pair_masks(embeds, ids, valid):
+def _pair_masks(embeds, ids, valid, group=None):
+    """The anchors' embeddings (this rank's entries), every entry's
+    embeddings (all ranks' with ``group``), the anchors' validity and the
+    (anchor, entry) masks: same identity, both valid, the anchor itself."""
     n, g, e = embeds.shape
     flat_e = embeds.reshape(n * g, e).float()
     flat_id = ids.reshape(n * g)
     flat_ok = valid.reshape(n * g).bool() & (flat_id >= 0)
-    same = flat_id[:, None] == flat_id[None, :]
-    pair_ok = flat_ok[:, None] & flat_ok[None, :]
-    eye = torch.eye(n * g, dtype=torch.bool, device=embeds.device)
-    return flat_e, flat_ok, same, pair_ok, eye
+    all_e, all_id, all_ok, offset = flat_e, flat_id, flat_ok, 0
+    if group is not None:
+        all_e = all_gather_rows(flat_e, group)
+        all_id = all_gather_rows(flat_id, group)
+        all_ok = all_gather_rows(flat_ok.to(torch.uint8), group).bool()
+        offset = dist.get_rank(group) * n * g
+    same = flat_id[:, None] == all_id[None, :]
+    pair_ok = flat_ok[:, None] & all_ok[None, :]
+    rows = torch.arange(n * g, device=embeds.device)[:, None] + offset
+    eye = rows == torch.arange(all_e.shape[0], device=embeds.device)[None, :]
+    return flat_e, all_e, flat_ok, same, pair_ok, eye
 
 
-def reid_triplet_loss(embeds: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
-                      margin: float = 0.3) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batch-hard triplet loss over cosine distance (Hermans et al. 2017):
-    for each valid anchor the hardest positive and the hardest negative,
-    hinged at ``margin``. Returns (mean over active anchors, active count);
-    anchors without both a positive and a negative contribute nothing."""
-    flat_e, flat_ok, same, pair_ok, eye = _pair_masks(embeds, ids, valid)
-    dist = 1.0 - flat_e @ flat_e.T
-    pos_mask = same & pair_ok & ~eye
-    neg_mask = ~same & pair_ok
-    big = 4.0   # > max cosine distance (2)
-    hardest_pos = torch.where(pos_mask, dist, torch.full_like(dist, -big)).amax(dim=1)
-    hardest_neg = torch.where(neg_mask, dist, torch.full_like(dist, big)).amin(dim=1)
-    active = pos_mask.any(dim=1) & neg_mask.any(dim=1) & flat_ok
-    per_anchor = _maximum(hardest_pos - hardest_neg + margin, 0.0)
+def _anchor_mean(per_anchor, active, group):
+    """Mean of ``per_anchor`` over the active anchors (this rank's share of
+    the global mean with ``group``) and the active count (global)."""
     count = active.sum()
+    if group is not None:
+        count = sum_detached(count, group)
     loss = torch.where(active, per_anchor, torch.zeros_like(per_anchor)).sum() \
         / torch.clamp(count, min=1)
     return loss, count
 
 
+def reid_triplet_loss(embeds: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
+                      margin: float = 0.3, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batch-hard triplet loss over cosine distance (Hermans et al. 2017):
+    for each valid anchor the hardest positive and the hardest negative,
+    hinged at ``margin``. Returns (mean over active anchors, active count);
+    anchors without both a positive and a negative contribute nothing."""
+    flat_e, all_e, flat_ok, same, pair_ok, eye = _pair_masks(embeds, ids, valid, group)
+    cos_d = 1.0 - flat_e @ all_e.T
+    pos_mask = same & pair_ok & ~eye
+    neg_mask = ~same & pair_ok
+    big = 4.0   # > max cosine distance (2)
+    hardest_pos = torch.where(pos_mask, cos_d, torch.full_like(cos_d, -big)).amax(dim=1)
+    hardest_neg = torch.where(neg_mask, cos_d, torch.full_like(cos_d, big)).amin(dim=1)
+    active = pos_mask.any(dim=1) & neg_mask.any(dim=1) & flat_ok
+    per_anchor = _maximum(hardest_pos - hardest_neg + margin, 0.0)
+    return _anchor_mean(per_anchor, active, group)
+
+
 def reid_supcon_loss(embeds: torch.Tensor, ids: torch.Tensor, valid: torch.Tensor,
-                     temperature: float = 0.1) -> Tuple[torch.Tensor, torch.Tensor]:
+                     temperature: float = 0.1, group=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Supervised contrastive loss (Khosla et al. 2020) over the same
     (embeds, ids, valid) contract: for each valid anchor with a positive,
     -mean over its positives of log softmax over all other valid entries
     (cosine similarity / ``temperature``). Returns (mean over active
     anchors, active count)."""
-    flat_e, flat_ok, same, pair_ok, eye = _pair_masks(embeds, ids, valid)
-    sim = (flat_e @ flat_e.T) / torch.tensor(temperature, dtype=torch.float32,
+    flat_e, all_e, flat_ok, same, pair_ok, eye = _pair_masks(embeds, ids, valid, group)
+    sim = (flat_e @ all_e.T) / torch.tensor(temperature, dtype=torch.float32,
                                              device=embeds.device)
     pos_mask = same & pair_ok & ~eye
     all_mask = pair_ok & ~eye
@@ -205,7 +238,4 @@ def reid_supcon_loss(embeds: torch.Tensor, ids: torch.Tensor, valid: torch.Tenso
     per_anchor = -torch.where(pos_mask, log_p, torch.zeros_like(log_p)).sum(dim=1) \
         / torch.clamp(n_pos, min=1)
     active = (n_pos > 0) & flat_ok
-    count = active.sum()
-    loss = torch.where(active, per_anchor, torch.zeros_like(per_anchor)).sum() \
-        / torch.clamp(count, min=1)
-    return loss, count
+    return _anchor_mean(per_anchor, active, group)

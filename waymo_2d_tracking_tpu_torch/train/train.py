@@ -24,6 +24,21 @@ state and the EMA. A step updates them in place and returns the same state
 Under ``dtype: bfloat16`` the forward runs under bf16 autocast; the losses
 and the optimizer run in float32. TF32 is off for every matmul and
 convolution of a step, as for serving.
+
+Data parallel (``mesh=``, a ``DeviceMesh`` from ``parallel/sharding.py``):
+one rank a card, each given the same global batch, of which it takes its
+rows of the data axis. JAX's step is one jitted program with sharding
+annotations, so it is the single-device step on the global batch, and so is
+this one: BatchNorm's statistics are the global batch's (every rank's
+per-image sums gathered and summed, ``models/resnet.py``),
+the losses' normalisers are global and the ReID anchors meet every rank's
+embeddings (``train/losses.py``), so each rank's loss is its share of the
+global loss; the gradients are summed by one all-reduce and every rank
+applies the same update, so parameters and EMA stay bit-equal across ranks.
+Under accumulation micro-batch i is the global rows [i*micro, (i+1)*micro),
+then sharded, weighted by its global positives. The metrics are the global
+ones. The rank at (data 0, model 0) writes checkpoints and logs; every rank
+restores.
 """
 from __future__ import annotations
 
@@ -40,6 +55,9 @@ from waymo_2d_tracking_tpu_torch import resolve_device
 from waymo_2d_tracking_tpu_torch.config import Config, TrainConfig
 from waymo_2d_tracking_tpu_torch.models.centernet import centernet_loss
 from waymo_2d_tracking_tpu_torch.models.detector import Detector, _no_tf32
+from waymo_2d_tracking_tpu_torch.models.resnet import BatchNorm2d
+from waymo_2d_tracking_tpu_torch.parallel import sharding as shd
+from waymo_2d_tracking_tpu_torch.parallel.collectives import sum_detached
 from waymo_2d_tracking_tpu_torch.train.losses import (
     fcos_loss,
     reid_supcon_loss,
@@ -49,6 +67,8 @@ from waymo_2d_tracking_tpu_torch.train.losses import (
 CLIP_NORM = 10.0
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
 BATCH_KEYS = ("images", "gt_boxes", "gt_classes", "gt_valid", "gt_track_ids")
+# metrics that are a rank's share of a global sum under data parallelism
+SHARE_METRICS = ("loss", "loss_cls", "loss_box", "loss_ctr", "reid_loss")
 
 
 @dataclasses.dataclass
@@ -168,22 +188,32 @@ def _as_batch(batch, device) -> Dict[str, torch.Tensor]:
 
 class DetectorTrainer:
     """Owns the model in train mode, the optimizer, the step and the
-    checkpoints. ``device`` defaults to ``"cuda"``; ``mesh`` (sharded data
-    parallel training) is not ported yet and raises."""
+    checkpoints. ``device`` defaults to ``"cuda"``; with ``mesh`` (data
+    parallel, see the module's docstring) the device is this rank's."""
 
     def __init__(self, cfg: Config, mesh=None, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh= shards the batch over several devices, part of the "
-                "distributed slice of the port (parallel/*), not ported yet; "
-                "pass mesh=None to train on one device")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.group = None
+        if mesh is not None:
+            self.group = shd.data_group(shd.check_mesh(mesh))
+            self.device = shd.mesh_device(mesh)
+        else:
+            self.device = resolve_device(device)
         self.model = Detector(cfg.detector, remat=cfg.train.remat).to(self.device).train()
+        for m in self.model.modules():
+            if isinstance(m, BatchNorm2d):
+                m.process_group = self.group
         self.tx = Optimizer(cfg.train)
         self._bound: Optional[int] = None
         names = dict(self.model.named_buffers())
         self._stat_names = [k for k in names if k.endswith(("running_mean", "running_var"))]
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes checkpoints and logs (always without a
+        mesh; the rank at (data 0, model 0) with one)."""
+        return self.mesh is None or shd.is_writer(self.mesh)
 
     # ------------------------------------------------------------- state
 
@@ -203,8 +233,12 @@ class DetectorTrainer:
                  for k in self._stat_names}
         ema = ({k: v.detach().clone() for k, v in params.items()}
                if self.cfg.train.ema_decay > 0 else {})
-        return TrainState(step=0, params=params, batch_stats=stats,
-                          opt_state=self.tx.init(params), ema_params=ema)
+        state = TrainState(step=0, params=params, batch_stats=stats,
+                           opt_state=self.tx.init(params), ema_params=ema)
+        if self.mesh is not None:
+            shd.replicate([state.params, state.batch_stats, state.opt_state, state.ema_params],
+                          self.mesh)
+        return state
 
     def _bind(self, state: TrainState) -> None:
         """Make the module's parameters and statistics the state's tensors."""
@@ -230,20 +264,22 @@ class DetectorTrainer:
         cfg = self.cfg
         if cfg.detector.head_family == "centernet":
             loss, metrics = centernet_loss(head_out, batch["gt_boxes"], batch["gt_classes"],
-                                           batch["gt_valid"], num_classes=cfg.detector.num_classes)
+                                           batch["gt_valid"], num_classes=cfg.detector.num_classes,
+                                           group=self.group)
         else:
             loss, metrics = fcos_loss(head_out, batch["gt_boxes"], batch["gt_classes"],
                                       batch["gt_valid"], num_classes=cfg.detector.num_classes,
                                       focal_alpha=cfg.train.focal_alpha,
-                                      focal_gamma=cfg.train.focal_gamma)
+                                      focal_gamma=cfg.train.focal_gamma, group=self.group)
         if reid_on:
             if cfg.train.reid_loss == "triplet":
                 reid_l, n_active = reid_triplet_loss(embeds, batch["gt_track_ids"],
-                                                     batch["gt_valid"], margin=cfg.train.reid_margin)
+                                                     batch["gt_valid"], margin=cfg.train.reid_margin,
+                                                     group=self.group)
             elif cfg.train.reid_loss == "supcon":
                 reid_l, n_active = reid_supcon_loss(
                     embeds, batch["gt_track_ids"], batch["gt_valid"],
-                    temperature=cfg.train.reid_temperature)
+                    temperature=cfg.train.reid_temperature, group=self.group)
             else:
                 raise ValueError("train.reid_loss must be 'supcon' or 'triplet', "
                                  f"got {cfg.train.reid_loss!r}")
@@ -252,7 +288,24 @@ class DetectorTrainer:
         return loss, metrics
 
     def _loss(self, batch: Dict[str, torch.Tensor], reid_on: bool):
-        return self._objective(*self._forward(batch, reid_on), batch, reid_on)
+        """(loss, global metrics) of ``batch``: this rank's rows of it under a
+        mesh, whose loss is this rank's share of the global loss."""
+        if self.mesh is not None:
+            batch = shd.shard_batch(batch, self.mesh)
+        loss, metrics = self._objective(*self._forward(batch, reid_on), batch, reid_on)
+        if self.group is not None:
+            keys = [k for k in SHARE_METRICS if k in metrics]
+            total = sum_detached(torch.stack([metrics[k].detach().float() for k in keys]),
+                                 self.group)
+            metrics = dict(metrics, **dict(zip(keys, total.unbind())))
+        return loss, metrics
+
+    def _sum_over_ranks(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
+        """The ranks' gradients summed, by one all-reduce of one flat buffer."""
+        if self.group is None:
+            return list(grads)
+        flat = sum_detached(torch.cat([g.reshape(-1) for g in grads]), self.group)
+        return [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in grads]), grads)]
 
     def reid_on(self, batch) -> bool:
         """Whether a step on ``batch`` trains the ReID tower."""
@@ -270,7 +323,8 @@ class DetectorTrainer:
         place. With accumulation the batch is split into micro-batches run in
         order (the statistics updated after each), and the gradients are
         the mean weighted by each micro-batch's ``max(num_pos, 1)``, which
-        recovers the whole batch's detection objective."""
+        recovers the whole batch's detection objective. Under a mesh
+        ``batch`` is the global batch and every micro-batch is sharded."""
         self._bind(state)
         reid_on = self.reid_on(batch)
         names = list(state.params)
@@ -279,7 +333,8 @@ class DetectorTrainer:
         with _no_tf32():
             if accum <= 1:
                 loss, metrics = self._loss(batch, reid_on)
-                grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
+                grads = self._sum_over_ranks(
+                    torch.autograd.grad(loss, leaves, materialize_grads=True))
             else:
                 n = batch["images"].shape[0]
                 if n % accum != 0:
@@ -295,7 +350,7 @@ class DetectorTrainer:
                     gsum = wg if gsum is None else torch._foreach_add(gsum, wg)
                     wsum = wsum + w
                     seq.append(m)
-                grads = torch._foreach_div(gsum, wsum)
+                grads = torch._foreach_div(self._sum_over_ranks(gsum), wsum)
                 metrics = {k: torch.stack([m[k].detach().float() for m in seq]).mean()
                            for k in seq[0]}
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -304,8 +359,9 @@ class DetectorTrainer:
     def train_step(self, state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         """One update on ``batch`` (numpy arrays or tensors: images (N,H,W,3)
         float32 normalised, gt_boxes (N,G,4), gt_classes (N,G), gt_valid
-        (N,G), optionally gt_track_ids (N,G)). Updates ``state`` in place
-        and returns it with the step's metrics (device tensors)."""
+        (N,G), optionally gt_track_ids (N,G); under a mesh the global batch,
+        the same on every rank). Updates ``state`` in place and returns it
+        with the step's metrics (device tensors)."""
         batch = _as_batch(batch, self.device)
         grads, _, metrics = self._grads_and_stats(state, batch)
         with _no_tf32():
@@ -337,15 +393,19 @@ class DetectorTrainer:
         """Save under ``<path>/step_N``, or exactly at ``path``
         (``exact_path=True``, the replace-in-place ``<checkpoint_dir>/best``),
         made absolute; ``path`` defaults to ``train.checkpoint_dir``. Written
-        to a temporary file renamed into place. Returns the path."""
+        to a temporary file renamed into place, under a mesh by the writing
+        rank while the others wait. Returns the path."""
         path = path or self.cfg.train.checkpoint_dir
         if not exact_path:
             path = os.path.join(path, f"step_{int(state.step)}")
         path = os.path.abspath(path)
-        os.makedirs(os.path.dirname(path), exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        torch.save(state.to_tree(), tmp)
-        os.replace(tmp, path)
+        if self.is_writer:
+            os.makedirs(os.path.dirname(path), exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            torch.save(state.to_tree(), tmp)
+            os.replace(tmp, path)
+        if self.mesh is not None:
+            shd.barrier(self.mesh)
         return path
 
     def restore_checkpoint(self, path: str, template: TrainState) -> TrainState:
@@ -428,7 +488,8 @@ def train_loop(trainer: DetectorTrainer, data_iter: Iterator, num_steps: int,
     with ``val_batches`` and ``val_every``, held-out AP every ``val_every``
     steps and at the end, the best-mAP state saved to
     ``<checkpoint_dir>/best``. ``state`` defaults to ``create_state`` from
-    ``generator`` (seed 0)."""
+    ``generator`` (seed 0). Under a mesh every rank draws the same global
+    batches; the writing rank logs."""
     if state is None:
         state = trainer.create_state(generator or torch.Generator().manual_seed(0))
     best_map = float("-inf")
@@ -440,7 +501,7 @@ def train_loop(trainer: DetectorTrainer, data_iter: Iterator, num_steps: int,
         # state.step is absolute and survives a restore; the end of training
         # is the loop's own position
         is_last = i == num_steps - 1
-        if step % log_every == 0 or is_last:
+        if trainer.is_writer and (step % log_every == 0 or is_last):
             m = {k: float(v) for k, v in metrics.items()}
             log_fn(f"step {step}: " + " ".join(f"{k}={v:.4f}" for k, v in m.items()))
         if checkpoint_every and step % checkpoint_every == 0:
