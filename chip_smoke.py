@@ -43,6 +43,11 @@ Phases (any failed check raises, and the script exits non-zero):
    1280x1920, 886x1920 and 67x99 frames, with the time of a 128-frame
    chunk; the prefetcher's pinned ring under a slow consumer at depth 1 and
    2, every chunk intact;
+1c. the tracker's appearance update (``lifecycle.ema_normalize``, XLA's
+   arithmetic) and the ReID head's normalization on the card bit-equal to
+   the CPU on random inputs (E = 128, 32, 16; 5 cameras), timed; the hostile
+   clip ``curved_pan`` through ``Tracker.run`` on the card and the CPU: MOTA /
+   IDF1 / IDSW, the first frame whose ids differ, the card's MOTA >= 0.73;
 2. the trained fixtures in float32 with TF32 off through the whole slice:
    seed-5 and dense-clip MOTA/IDF1/IDSW floors, the ReID recovery gain, and
    the seed-5 clip with test-time augmentation (flip, scales 1.0 and 0.75)
@@ -929,6 +934,137 @@ def phase_downscale(np, torch, card):
     log(f"[1b] DevicePrefetcher: {len(host)} chunks of 8x640x960x3 through the pinned ring at "
         f"depth 1 and 2 under a slow consumer, each equal to its host source")
     return times
+
+
+def random_match_inputs(np, torch, rng, cams, s, d, e):
+    """A tracker state and detections with unit embeddings, a matching with
+    some slots unmatched and an appearance mask with some slots off (CPU)."""
+    from waymo_2d_tracking_tpu_torch.config import TrackerConfig
+    from waymo_2d_tracking_tpu_torch.tracker.tracker import init_state
+    from waymo_2d_tracking_tpu_torch.types import Detections
+
+    def unit(*shape):
+        x = rng.normal(size=shape).astype(np.float32)
+        return torch.from_numpy(x / np.linalg.norm(x, axis=-1, keepdims=True))
+
+    lead = () if cams is None else (cams,)
+    cfg = TrackerConfig(max_tracks=s, max_detections=d, embed_dim=e, gallery_size=4,
+                        reid_recovery=True)
+    state = init_state(cfg, device="cpu")
+    if cams is not None:
+        state = type(state).stack([state] * cams)
+    state = state.replace(embed=unit(*lead, s, e), gallery=unit(*lead, s, 4, e),
+                          status=torch.full(lead + (s,), 2, dtype=torch.int8))
+    xy = rng.uniform(0, 500, lead + (d, 2)).astype(np.float32)
+    wh = rng.uniform(10, 80, lead + (d, 2)).astype(np.float32)
+    dets = Detections(boxes=torch.from_numpy(np.concatenate([xy, xy + wh], -1)),
+                      scores=torch.from_numpy(rng.uniform(0, 1, lead + (d,)).astype(np.float32)),
+                      classes=torch.zeros(lead + (d,), dtype=torch.int32),
+                      embeds=unit(*lead, d, e), valid=torch.ones(lead + (d,), dtype=torch.bool))
+    r2c = np.stack([rng.permutation(d)[:s] for _ in range(cams or 1)]).astype(np.int32)
+    r2c[rng.random(r2c.shape) < 0.15] = -1
+    r2c = torch.from_numpy(r2c if cams else r2c[0])
+    upd = torch.from_numpy(rng.random(tuple(r2c.shape)) > 0.2)
+    return cfg, state, dets, r2c, upd
+
+
+def phase_appearance(np, torch, counters, card):
+    """Phase 1c: the tracker's appearance update (``lifecycle.apply_matches``
+    with ``ema_normalize``, XLA's arithmetic) and the ReID head's
+    normalization (``utils/l2norm.py``) on the card give the CPU's bits on
+    random inputs, at the headline's (S = 64, E = 128), config 4's (5
+    cameras, S = 128) and the fixtures' E = 32 and 16, with no auction in
+    between; the update timed against the one-line form it replaced. Then
+    ``HOSTILE_CLIPS['curved_pan']`` under the hostile-quality BASE config
+    through ``Tracker.run`` on the card (the captured step) and on the CPU:
+    MOTA / IDF1 / IDSW and the first frame where the ids differ (the card's
+    auction runs the Pallas kernel's schedule, so a near-tie may go the
+    other way), the card held to the JAX test's floor (MOTA >= 0.73)."""
+    from waymo_2d_tracking_tpu_torch.config import TrackerConfig
+    from waymo_2d_tracking_tpu_torch.data.synthetic import HOSTILE_CLIPS, generate_clip
+    from waymo_2d_tracking_tpu_torch.eval.mot import (
+        evaluate_mot, gt_to_frames, track_outputs_to_frames,
+    )
+    from waymo_2d_tracking_tpu_torch.tracker import Tracker, lifecycle
+    from waymo_2d_tracking_tpu_torch.utils import l2norm
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(60)
+    checked = []
+    for cams, s, e in ((None, 64, 128), (5, 128, 128), (None, 64, 32), (None, 16, 16)):
+        cfg, state, dets, r2c, upd = random_match_inputs(np, torch, rng, cams, s, s, e)
+        outs = [lifecycle.apply_matches(state.to(where), dets.to(where), r2c.to(where),
+                                        torch.zeros_like(upd).to(where), cfg,
+                                        embed_update=upd.to(where)).embed.cpu()
+                for where in ("cpu", dev)]
+        if not torch.equal(outs[0].view(torch.int32), outs[1].view(torch.int32)):
+            bad = int((outs[0] != outs[1]).sum())
+            raise AssertionError(f"appearance update at {(cams, s, e)}: {bad} elements of the "
+                                 f"card differ from the CPU")
+        checked.append(f"{'' if cams is None else f'{cams}x'}{s}x{e}")
+    for r, e in ((8192, 128), (64, 32)):
+        x = torch.from_numpy(rng.normal(size=(r, e)).astype(np.float32) * 0.05)
+        if not torch.equal(l2norm.l2_normalize(x.to(dev)).cpu(), l2norm.l2_normalize(x)):
+            raise AssertionError(f"ReID normalization at {r}x{e}: the card differs from the CPU")
+        checked.append(f"ReID {r}x{e}")
+    embed = torch.from_numpy(rng.normal(size=(64, 128)).astype(np.float32)).to(dev)
+    det_e = torch.from_numpy(rng.normal(size=(64, 128)).astype(np.float32)).to(dev)
+
+    def one_line():
+        ema = 0.9 * embed + (1.0 - 0.9) * det_e
+        return ema / torch.clamp(torch.linalg.vector_norm(ema, dim=-1, keepdim=True), min=1e-8)
+
+    def graphed(fn):
+        """CUDA-event ms of 128 replays (a headline chunk's frames) of ``fn``
+        captured alone."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        return cuda_time_ms(lambda: [graph.replay() for _ in range(128)], reps=5)
+
+    new = lambda: lifecycle.ema_normalize(embed, det_e, 0.9)  # noqa: E731
+    eager = {k: cuda_time_ms(f, reps=50) for k, f in (("new", new), ("old", one_line))}
+    replays = {k: graphed(f) for k, f in (("new", new), ("old", one_line))}
+    log(f"[1c] appearance update on the card == CPU bit for bit at {', '.join(checked)} "
+        f"({card}); ema_normalize at 64x128 {eager['new']:.4f} ms eager against the one-line "
+        f"vector_norm form's {eager['old']:.4f} ms (median of 50); 128 replays of each "
+        f"captured alone {replays['new']:.3f} ms against {replays['old']:.3f} ms (median of "
+        f"5; CUDA events)")
+
+    clip = HOSTILE_CLIPS["curved_pan"]
+    cfg = TrackerConfig(max_tracks=64, max_detections=64, embed_dim=128,
+                        appearance_weight=0.3, appearance_gate=0.5, n_init=3, max_age=3,
+                        iou_threshold=0.3, reid_recovery=True, max_lost_age=30, gallery_size=4)
+    dets, gt = generate_clip(clip)
+    runs = {}
+    for where in ("cpu", "cuda"):
+        zero_counts(counters)
+        t0 = time.perf_counter()
+        _, out = Tracker(cfg, device=where).run(dets.to(where))
+        out = out.to_numpy()
+        runs[where] = (out, time.perf_counter() - t0, read_counts(counters))
+    (cpu, cpu_s, _), (card_out, card_s, counts) = runs["cpu"], runs["cuda"]
+    ids = [np.where(o.valid, o.track_id, -1) for o in (cpu, card_out)]
+    differ = np.nonzero((ids[0] != ids[1]).any(1) | (cpu.valid != card_out.valid).any(1))[0]
+    first = int(differ[0]) if differ.size else None
+    m = {w: evaluate_mot(gt_to_frames(gt), track_outputs_to_frames(o, clip.num_frames))
+         for w, o in (("cpu", cpu), ("cuda", card_out))}
+    if counts["auction"] <= 0:
+        raise AssertionError(f"curved_pan on the card launched no auction: {counts}")
+    log(f"[1c] curved_pan BASE ({clip.num_frames} frames, embed 128): card MOTA "
+        f"{m['cuda'].mota:.4f} IDF1 {m['cuda'].idf1:.4f} IDSW {m['cuda'].num_idsw} in "
+        f"{card_s:.2f} s; CPU {m['cpu'].mota:.4f} / {m['cpu'].idf1:.4f} / {m['cpu'].num_idsw} "
+        f"in {cpu_s:.2f} s; first frame whose ids differ from the CPU's: {first}; "
+        f"launches {json.dumps(counts)}")
+    if m["cuda"].mota < 0.73:
+        raise AssertionError(f"curved_pan BASE on the card: MOTA {m['cuda'].mota:.4f} < 0.73")
+    return counts
 
 
 # ----------------------------------------------------------------- phase 2
@@ -3230,6 +3366,7 @@ def main() -> int:
     log(f"[1] launches in phase 1 (comparisons and timing, not a main path): "
         f"{json.dumps({k: fn.launches for k, fn in counters.items()})}")
     phase_downscale(np, torch, smi)
+    curved_pan = phase_appearance(np, torch, counters, smi)
     committed = phase_fixtures(np, torch, nms, assign)
     t0 = time.perf_counter()
     serve_fixture = phase_serve_fixture(np, torch, counters, smi, committed["online"])
@@ -3239,6 +3376,7 @@ def main() -> int:
     plans = {"d1": save_d1_frames(np, headline_frames)}
     paths.update(phase_new_paths(np, torch, counters, smi, headline_frames, plans))
     paths["serve_fixture"] = serve_fixture
+    paths["curved_pan"] = curved_pan
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     paths["serve_headline"] = phase_serve_headline(np, torch, counters, smi, headline_frames)

@@ -5,7 +5,8 @@
   with detection noise, crossings, occlusion gaps, missed and false
   detections, and the hostile-regime knobs) as time-stacked ``Detections``
   plus the clean ground truth, drawing from ``default_rng(seed)`` in the JAX
-  package's order, so the same seed gives the same clip;
+  package's order, so the same seed gives the same clip; ``HOSTILE_CLIPS``
+  names the JAX package's four hostile-regime clips;
 - ``render_video_clip``: the scripted trajectories drawn as class-coloured
   rectangles on a noise background, pixel for pixel the JAX package's;
 - ``render_detection_batch``, ``random_rect_batch`` and
@@ -217,6 +218,36 @@ def generate_clip(cfg: SyntheticClipConfig = SyntheticClipConfig()):
         "classes": (np.arange(k) % 3).astype(np.int32),
     }
     return dets, gt
+
+
+# The hostile-regime clips, the JAX package's table field for field: the
+# scripted regimes where the tracker's opt-in association knobs matter
+# (BYTE's occlusion dips, buffered IoU's curved pan, a birth/death storm,
+# motion_gate's ghost clutter).
+HOSTILE_CLIPS = {
+    "occl_dips": SyntheticClipConfig(
+        num_frames=150, num_objects=36, image_size=(640, 960),
+        det_noise_px=3.0, miss_prob=0.05, false_pos_per_frame=1.0,
+        occlusion_dip=True, occlusion_gap=(0, 0), seed=23,
+    ),
+    "curved_pan": SyntheticClipConfig(
+        num_frames=150, num_objects=24, image_size=(640, 960),
+        det_noise_px=4.0, miss_prob=0.08, false_pos_per_frame=1.0,
+        accel=0.35, pan_amplitude=90.0, pan_period=40.0,
+        occlusion_dip=True, occlusion_gap=(0, 0), seed=29,
+    ),
+    "storm": SyntheticClipConfig(
+        num_frames=150, num_objects=40, image_size=(640, 960),
+        det_noise_px=3.0, miss_prob=0.08, false_pos_per_frame=1.5,
+        lifespan_frac=(0.2, 0.7), distance_noise=True,
+        occlusion_gap=(0, 0), seed=31,
+    ),
+    "ghost_clutter": SyntheticClipConfig(
+        num_frames=150, num_objects=24, image_size=(640, 960),
+        det_noise_px=3.0, miss_prob=0.05, false_pos_per_frame=0.5,
+        ghost_prob=0.12, occlusion_gap=(0, 0), seed=37,
+    ),
+}
 
 
 RENDER_COLORS = np.array(

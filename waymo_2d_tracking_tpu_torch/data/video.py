@@ -21,7 +21,8 @@ def import_cv2():
     except ImportError as e:
         raise ImportError(
             "OpenCV (cv2) is not installed: reading or writing video files "
-            "(`track --video`, `draw`) needs it; the tracking paths do not"
+            "(`track --video`, `draw`) and writing directory segments need it; "
+            "the tracking paths do not"
         ) from e
 
 

@@ -11,11 +11,9 @@ camera) whose ``jpeg_frames`` stream lazily, a chunk at a time:
    numbers as the JAX package recalls them, in one place).
 2. Directory segments: a directory with ``meta.json`` ({context_name,
    cameras: {name: camera_id}, timestamps}) and frames as
-   ``frames/<t>_<cam>.jpg``.
-
-Writing a directory segment (``materialize_directory_segment`` in the JAX
-package) encodes JPEGs through cv2, which the port does not depend on; it is
-not ported.
+   ``frames/<t>_<cam>.jpg``. ``materialize_directory_segment`` writes one
+   from uint8 frames, encoding the JPEGs with cv2, which it imports when
+   called (the reading paths never need it).
 """
 from __future__ import annotations
 
@@ -315,3 +313,46 @@ def iter_segments(path: str, cameras: Sequence[str] = ("FRONT",)):
                     timestamps=meta["timestamps"],
                     jpeg_frames=DirectoryCameraJpegs(paths),
                 )
+
+
+def materialize_directory_segment(
+    out_dir: str, context_name: str, frames, timestamps: Sequence[int],
+    camera_id: int = 1, labels=None, jpeg_quality: int = 90,
+) -> str:
+    """Write a directory segment from (T, H, W, 3) uint8 RGB frames; one call
+    per camera builds a multi-camera context (``meta.json`` is merged, and
+    every camera of a context must carry the same timestamps). ``labels``
+    (track records) go to ``labels.jsonl``. Returns the segment directory."""
+    from waymo_2d_tracking_tpu_torch.data.video import import_cv2
+
+    cv2 = import_cv2()
+    seg_dir = os.path.join(out_dir, context_name)
+    os.makedirs(os.path.join(seg_dir, "frames"), exist_ok=True)
+    for t in range(frames.shape[0]):
+        cv2.imwrite(
+            os.path.join(seg_dir, "frames", f"{t}_{camera_id}.jpg"),
+            frames[t][:, :, ::-1],
+            [cv2.IMWRITE_JPEG_QUALITY, jpeg_quality],
+        )
+    meta_path = os.path.join(seg_dir, "meta.json")
+    cam_name = {v: k for k, v in CAMERA_NAMES.items()}.get(camera_id, f"CAM_{camera_id}")
+    if os.path.exists(meta_path):
+        with open(meta_path) as f:
+            meta = json.load(f)
+        if meta["timestamps"] != list(map(int, timestamps)):
+            # the JAX package's assertion, kept under python -O
+            raise AssertionError("all cameras of a context must share timestamps")
+        meta["cameras"][cam_name] = camera_id
+    else:
+        meta = {
+            "context_name": context_name,
+            "cameras": {cam_name: camera_id},
+            "timestamps": list(map(int, timestamps)),
+        }
+    with open(meta_path, "w") as f:
+        json.dump(meta, f)
+    if labels is not None:
+        from waymo_2d_tracking_tpu_torch.io_out import submission
+
+        submission.write_jsonl(os.path.join(seg_dir, "labels.jsonl"), labels)
+    return seg_dir

@@ -2,8 +2,9 @@
 
 (R, P, P, C) RoIAligned features -> conv/GN/relu -> conv/relu -> flatten in
 NHWC order (as the JAX head flattens (P, P, C), so the Dense weight maps
-unchanged) -> Dense -> L2-normalized (R, E) float32 embeddings. The two convs
-come from ``make_conv`` (quantized only under ``quant_scope='all'``).
+unchanged) -> Dense -> L2-normalized (R, E) float32 embeddings (the norm in
+XLA's order, ``utils/l2norm.py``). The two convs come from ``make_conv``
+(quantized only under ``quant_scope='all'``).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ from torch import nn
 
 from waymo_2d_tracking_tpu_torch.models.heads import GN_EPS
 from waymo_2d_tracking_tpu_torch.models.quant import make_conv
+from waymo_2d_tracking_tpu_torch.utils import l2norm
 
 
 class ReIDHead(nn.Module):
@@ -30,4 +32,4 @@ class ReIDHead(nn.Module):
         x = F.relu(self.conv1(x))
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
         x = self.proj(x).float()
-        return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-8)
+        return l2norm.l2_normalize(x)

@@ -13,9 +13,11 @@ are compared only like this. The detections are those of one headline chunk
 frames), computed once by the first checkout and handed to every checkout as
 numpy arrays. Each checkout, in the order given and then its reverse: a
 warm-up, 3 timed runs of ``track_segment`` over the 128 frames (wall time to
-a synchronize), and a ``torch.profiler`` trace of 32 steps (host CPU time of
-the top-level ``aten`` ops). Every checkout's final state and outputs must
-equal the first's; the script exits non-zero otherwise.
+a synchronize), 3 of ``tracker/graph.py track_chunk`` (the captured step
+replayed, as the drivers run it; captured before the first), and a
+``torch.profiler`` trace of 32 steps (host CPU time of the top-level
+``aten`` ops). Every checkout's final state and outputs must equal the
+first's; the script exits non-zero otherwise.
 """
 from __future__ import annotations
 
@@ -49,16 +51,17 @@ def load(root: str):
         import waymo_2d_tracking_tpu_torch as pkg
         from waymo_2d_tracking_tpu_torch import config, tracker, types
         from waymo_2d_tracking_tpu_torch.ops import _cuda
+        from waymo_2d_tracking_tpu_torch.tracker import graph
     finally:
         sys.path.pop(0)
     if not pkg.__file__.startswith(os.path.abspath(root)):
         raise RuntimeError(f"{PKG} came from {pkg.__file__}, not {root}")
     _cuda.build_all()
-    return config, tracker, types
+    return config, tracker, types, graph
 
 
 def headline_detections(root: str):
-    config, _, _ = load(root)
+    config, _, _, _ = load(root)
     from waymo_2d_tracking_tpu_torch.data.synthetic import SyntheticClipConfig, render_video_clip
     from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentPipeline
 
@@ -70,7 +73,7 @@ def headline_detections(root: str):
 
 
 def measure(root: str, dets_np):
-    config, tracker, types = load(root)
+    config, tracker, types, graph = load(root)
     cfg = config._update(config.Config(), PRESET).tracker
     dets = types.Detections.from_numpy(dets_np, device="cuda")
     tracker.track_segment(tracker.init_state(cfg, device="cuda"), dets[:8], cfg)
@@ -81,6 +84,15 @@ def measure(root: str, dets_np):
         state, outs = tracker.track_segment(tracker.init_state(cfg, device="cuda"), dets, cfg)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
+    graphs, graphed = {}, []
+    graph.track_chunk(tracker.init_state(cfg, device="cuda"), dets, cfg, graphs)
+    for _ in range(3):
+        fresh = tracker.init_state(cfg, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        graph.track_chunk(fresh, dets, cfg, graphs)
+        torch.cuda.synchronize()
+        graphed.append((time.perf_counter() - t0) * 1e3)
     st = state
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         for t in range(32):
@@ -91,7 +103,7 @@ def measure(root: str, dets_np):
     host_us = collections.Counter()
     for e in top:
         host_us[e.name] += e.cpu_time_total / 32
-    return walls, len(top) / 32, host_us, (state.to_numpy(), outs.to_numpy())
+    return walls, graphed, len(top) / 32, host_us, (state.to_numpy(), outs.to_numpy())
 
 
 def main() -> int:
@@ -100,15 +112,17 @@ def main() -> int:
                           check=True, capture_output=True, text=True).stdout.strip()
     names = list(trees)
     dets_np = headline_detections(trees[names[0]])
-    walls, ops, host, results = {}, {}, {}, {}
+    walls, graphs, ops, host, results = {}, {}, {}, {}, {}
     for name in names + names[::-1]:
-        w, n, h, res = measure(trees[name], dets_np)
+        w, g, n, h, res = measure(trees[name], dets_np)
         walls.setdefault(name, []).extend(w)
+        graphs.setdefault(name, []).extend(g)
         ops[name], host[name] = n, h
         results.setdefault(name, res)
-        print(f"{name}: tracker loop over 128 frames {json.dumps([round(x, 1) for x in w])} ms; "
-              f"{n:.1f} top-level aten ops a step, {sum(h.values()):.0f} us of their host "
-              f"time under the profiler ({card})", flush=True)
+        print(f"{name}: tracker loop over 128 frames {json.dumps([round(x, 1) for x in w])} ms "
+              f"eager, {json.dumps([round(x, 2) for x in g])} ms graphed; {n:.1f} top-level "
+              f"aten ops a step, {sum(h.values()):.0f} us of their host time under the "
+              f"profiler ({card})", flush=True)
     same = {}
     for name in names[1:]:
         same[name] = all(np.array_equal(getattr(a, f), getattr(b, f))
@@ -120,7 +134,8 @@ def main() -> int:
         print(f"{k:36s} " + " | ".join(f"{n} {host[n][k]:8.1f} us" for n in names))
     print(json.dumps({"card": card, "bit_identical_to_first": same,
                       "median_ms": {n: statistics.median(v) for n, v in walls.items()},
-                      "runs_ms": walls, "ops_per_step": ops}))
+                      "graphed_median_ms": {n: statistics.median(v) for n, v in graphs.items()},
+                      "runs_ms": walls, "graphed_runs_ms": graphs, "ops_per_step": ops}))
     return 0 if all(same.values()) else 1
 
 

@@ -100,9 +100,12 @@ def reid_separation(runner, rng: np.random.Generator, n_batches: int = 4) -> dic
 
 
 def main(out_dir: str, steps: int = 800, batch_size: int = 16, seed: int = 0,
-         reid: bool = False, device="cuda", log=print) -> dict:
+         reid: bool = False, device="cuda", log=print, init_weights=None) -> dict:
     """Train, check the gates (raising if one is missed) and write the
-    fixture to ``out_dir``. Returns its metadata with ``state_dict``."""
+    fixture to ``out_dir``. Returns its metadata with ``state_dict``.
+    ``init_weights``: a port ``state_dict`` to start from (e.g. the JAX
+    package's initial variables through ``weights.from_flax_numpy``) instead
+    of the port's own draw from ``seed``."""
     import torch
 
     from waymo_2d_tracking_tpu_torch.config import Config, TrainConfig
@@ -122,7 +125,8 @@ def main(out_dir: str, steps: int = 800, batch_size: int = 16, seed: int = 0,
         weight_decay=1e-5, reid_loss_weight=0.5 if reid else 0.0))
     rng = np.random.default_rng(seed)
     trainer = DetectorTrainer(cfg, device=device)
-    state = trainer.create_state(torch.Generator().manual_seed(seed))
+    state = (trainer.create_state(torch.Generator().manual_seed(seed)) if init_weights is None
+             else trainer.state_from_weights(init_weights))
     gen = random_rect_batch_reid if reid else random_rect_batch
     losses = []
     # the batches are drawn in order from one generator, in the prefetcher's

@@ -14,6 +14,7 @@ detections (..., D, ...), each camera with its own id counter.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from waymo_2d_tracking_tpu_torch.config import TrackerConfig
@@ -27,6 +28,7 @@ from waymo_2d_tracking_tpu_torch.types import (
     TrackerState,
     boxes_xyxy_to_cxcywh,
 )
+from waymo_2d_tracking_tpu_torch.utils import l2norm
 
 
 def _int8(x: torch.Tensor) -> torch.Tensor:
@@ -43,6 +45,24 @@ def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     extra = x.dim() - idx.dim()
     index = idx.reshape(idx.shape + (1,) * extra).expand(idx.shape + x.shape[idx.dim():])
     return torch.gather(x, idx.dim() - 1, index)
+
+
+def ema_normalize(embed: torch.Tensor, det_e: torch.Tensor, momentum: float) -> torch.Tensor:
+    """``m * embed + (1 - m) * det_e``, L2-normalized over the last axis, with
+    the bits of the JAX package's jitted ``apply_matches`` on the CPU.
+
+    XLA fuses the update into the norm's reduction and into the division, and
+    LLVM contracts each multiply-add: the update is ``fma(m, embed, round(c *
+    det_e))`` with ``m = float32(momentum)`` and ``c = float32(1 - momentum)``,
+    and the norm sums its squares in XLA's order (``utils/l2norm.py``). At
+    E <= 32 the division's copy of the update contracts the other product,
+    ``fma(c, det_e, round(m * embed))``.
+    """
+    m = float(np.float32(momentum))
+    c = float(np.float32(1.0 - momentum))
+    ema = l2norm.fma(embed, m, det_e * c)
+    num = ema if embed.shape[-1] > l2norm.WINDOW else l2norm.fma(det_e, c, embed * m)
+    return l2norm.divide_by_norm(num, l2norm.l2_norm(ema))
 
 
 def apply_matches(
@@ -88,9 +108,8 @@ def apply_matches(
 
     if cfg.embed_dim > 0:
         det_e = take(dets.embeds, det_idx)
-        ema = cfg.embed_ema * state.embed + (1.0 - cfg.embed_ema) * det_e
-        norm = torch.clamp(torch.linalg.vector_norm(ema, dim=-1, keepdim=True), min=1e-8)
-        embed = torch.where(emb_ok[..., None], ema / norm, state.embed)
+        ema = ema_normalize(state.embed, det_e, cfg.embed_ema)
+        embed = torch.where(emb_ok[..., None], ema, state.embed)
         # gallery ring write: matched slots record the raw detection embed
         k = state.gallery.shape[-2]
         slot_pos = torch.remainder(state.gallery_count, k)
