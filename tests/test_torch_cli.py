@@ -63,14 +63,21 @@ def _same_tracks(got_path, want_path):
         assert g == w
 
 
-def test_help_lists_every_jax_verb_but_bench():
+def test_help_lists_every_jax_verb():
     def verbs(parser):
-        return set(parser._subparsers._group_actions[0].choices)
+        return parser._subparsers._group_actions[0].choices
 
-    want = verbs(jcli.build_parser()) - {"bench"}
-    got = verbs(cli.build_parser())
-    assert want <= got and "bench" not in got
-    assert got - want == {"export"}
+    def flags(sp):
+        return {o for a in sp._actions for o in a.option_strings} - {"-h", "--help"}
+
+    want, got = verbs(jcli.build_parser()), verbs(cli.build_parser())
+    assert set(want) <= set(got)
+    assert set(got) - set(want) == {"export"}
+    # bench: the JAX verb's flags, the harness's row flags it does not pass
+    # on, and --device
+    assert flags(want["bench"]) <= flags(got["bench"])
+    assert flags(got["bench"]) - flags(want["bench"]) == {
+        "--device", "--headline", "--int8", "--src-net", "--multicam"}
 
 
 def test_track_from_detections_matches_jax(files, tmp_path, capsys):

@@ -8,7 +8,9 @@ their ``.gallery.npz`` arrays bit-equal to ``run_segments``', the manifest's
 keys and JAX's ``shard`` column, a rerun that does nothing, the detections-only
 fan-out equal to ``run_segment(detections_only=True)``; the cases of
 ``test_sharded_grouping_by_resolution_lazy_and_fault_injection`` (groups by
-resolution, the stream consumed lazily, ``fail_after`` and the resume); and
+resolution, the stream consumed lazily, ``fail_after`` and the resume), and
+the same fault and resume with the writer's manifest appends slowed in the
+call that raises, so the other rank starts the resumed call first; and
 two 2-camera contexts through ``run_context_groups_sharded`` equal to
 ``run_context_groups``. Each rank maps the frames from ``.npy`` files."""
 import json
@@ -42,6 +44,7 @@ CFG = Config(
     pipeline=PipelineConfig(chunk_frames=4, cameras=("FRONT", "FRONT_LEFT")),
 )
 LENGTHS = [6, 9, 5, 13, 6]
+SLOW_APPEND_S = 2.0
 MIXED = [("a", (12, 16)), ("b", (8, 16)), ("c", (12, 16)), ("d", (8, 16)), ("e", (12, 16))]
 STAT_KEYS = {"context", "camera", "frames", "tracks", "records", "shard"}
 
@@ -82,8 +85,10 @@ def run(tmp_path_factory):
     d = str(tmp_path_factory.mktemp("sharded"))
     segs, mixed, ctxs = _plans(d)
     out_root = os.path.join(d, "shd")
+    # seed 0, then the writer's slowed appends
     res = run_ranks(rank_cases.fanout_case, WORLD, "cpu", CFG, out_root, segs, mixed, CFG, ctxs,
-                    device="cpu", threads=1, timeout=300, workdir=os.path.join(d, "ranks"))
+                    0, SLOW_APPEND_S, device="cpu", threads=1, timeout=300,
+                    workdir=os.path.join(d, "ranks"))
     return {"res": res, "root": out_root, "dir": d, "segs": segs, "ctxs": ctxs}
 
 
@@ -158,6 +163,25 @@ def test_grouping_by_resolution_lazy_and_fault_injection(run):
     seen = dict(run["res"][0]["seen"])
     assert seen["c"] == [] and seen["d"] == ["a/1", "c/1"]
     assert seen["e"] == ["a/1", "c/1", "b/1", "d/1"]
+
+
+def test_resume_after_a_fault_with_a_slow_writer(run):
+    """The writer is still appending the first group's rows when the other
+    rank raises and starts the resumed call: every rank must still skip the
+    same segments (the writer reads the done keys after a barrier and
+    broadcasts them), so both return the same rows and the manifest holds
+    each key once."""
+    first, *others = run["res"]
+    assert "fault injection: stopping after 2 segments" in first["slow_fault"]
+    for res in others:
+        assert res["slow_fault"] == first["slow_fault"]
+        assert res["slow_resumed"] == first["slow_resumed"]
+        assert res["slow_resumed_manifest"] == first["slow_resumed_manifest"]
+    assert [(r["context"], r["shard"]) for r in first["slow_resumed"]] == \
+        [("b", 0), ("d", 1), ("e", 0)]
+    keys = first["slow_resumed_manifest"]
+    assert len(keys) == len(set(keys)) == len(MIXED)
+    assert keys == ["a/1", "c/1", "b/1", "d/1", "e/1"]
 
 
 def test_contexts_equal_run_context_groups(run, tmp_path):

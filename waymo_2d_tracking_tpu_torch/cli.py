@@ -29,7 +29,12 @@ The port adds:
 ``W2T_BACKEND`` to pick ``gloo`` over the default NCCL for CUDA;
 ``parallel/multihost.py``). Without the variables the verb runs on a world of
 one on ``--device``, which equals the unsharded verb. The writing rank
-prints. ``bench`` is not a verb of the port (ROADMAP Queue 1 item 2).
+prints.
+
+``bench`` runs the port's harness (``python -m
+waymo_2d_tracking_tpu_torch.bench``, in this process's place) with the JAX
+verb's flags, the harness's ``--headline``, ``--int8``, ``--src-net`` and
+``--multicam``, and ``--device``.
 """
 from __future__ import annotations
 
@@ -39,6 +44,8 @@ import json
 import os
 import sys
 from typing import List, Optional
+
+from waymo_2d_tracking_tpu_torch import bench
 
 _ONLINE_SHARDED = ("--online is a single-host serving path; it does not compose with "
                    "--sharded (fan streams across processes instead, one OnlineTracker per chip)")
@@ -891,6 +898,15 @@ def cmd_doctor(args):
     return 0 if ok else 1
 
 
+def cmd_bench(args):
+    cmd = [sys.executable, "-m", "waymo_2d_tracking_tpu_torch.bench"] + bench.row_argv(args)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    sys.stdout.flush()
+    os.execve(sys.executable, cmd, env)
+
+
 def build_parser():
     p = argparse.ArgumentParser(prog="w2t-torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -1081,6 +1097,10 @@ def build_parser():
     sp = sub.add_parser("doctor", help="environment health report (card, kernels, deps)")
     sp.add_argument("--compile-cache", dest="compile_cache", default=None, metavar="DIR|off")
     sp.set_defaults(fn=cmd_doctor)
+
+    sp = sub.add_parser("bench", help="run the benchmark harness")
+    bench.add_arguments(sp)
+    sp.set_defaults(fn=cmd_bench)
     return p
 
 

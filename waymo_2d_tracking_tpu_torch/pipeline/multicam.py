@@ -88,15 +88,17 @@ class MultiCamPipeline:
         calibrate_params_from_frames(self.detector, self.cfg, flat, src_hw)
         self._calibrated = True
 
-    def chunk_step(self, states: TrackerState, frames_u8: np.ndarray, src_hw):
-        """(states, host (chunk, cams, H, W, 3) u8 at the size the chunk
-        iterator gave, ``src_hw`` the size after ``decode_scale_denom``) ->
-        (states', outputs on the device (chunk, cams, S, ...), scale): one
-        shared-backbone batch through the detector, then the camera-batched
-        tracker. Frames larger than ``src_hw`` are downscaled on the device."""
+    def chunk_step(self, states: TrackerState, frames_u8, src_hw):
+        """(states, (chunk, cams, H, W, 3) u8 at the size the chunk iterator
+        gave, a host array or a tensor already on the device, ``src_hw`` the
+        size after ``decode_scale_denom``) -> (states', outputs on the device
+        (chunk, cams, S, ...), scale): one shared-backbone batch through the
+        detector, then the camera-batched tracker. Frames larger than
+        ``src_hw`` are downscaled on the device."""
         t, c = frames_u8.shape[:2]
-        flat = np.ascontiguousarray(frames_u8).reshape((t * c,) + frames_u8.shape[2:])
-        frames = torch.from_numpy(flat).to(self.device)
+        if isinstance(frames_u8, np.ndarray):
+            frames_u8 = torch.from_numpy(np.ascontiguousarray(frames_u8))
+        frames = frames_u8.reshape((t * c,) + tuple(frames_u8.shape[2:])).to(self.device)
         if tuple(frames.shape[1:3]) != tuple(src_hw):
             frames = area_downscale(frames, self.cfg.pipeline.decode_scale_denom)
         self.ensure_calibrated(frames, src_hw)

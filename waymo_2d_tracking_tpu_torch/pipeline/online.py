@@ -193,10 +193,13 @@ class _Session:
         if clear_latency:
             self._latency = _LatencyWindow(self._latency.maxlen)
 
-    def _device_step(self, frames_u8: np.ndarray, src_hw):
-        """(C, H, W, 3) host uint8 -> (host TrackOutputs, scale); the live
-        state advances by one frame."""
-        frames = torch.from_numpy(np.ascontiguousarray(frames_u8)).to(self.device)
+    def _device_step(self, frames_u8, src_hw):
+        """(C, H, W, 3) uint8, a host array or a tensor already on the
+        device -> (host TrackOutputs, scale); the live state advances by one
+        frame."""
+        if isinstance(frames_u8, np.ndarray):
+            frames_u8 = torch.from_numpy(np.ascontiguousarray(frames_u8))
+        frames = frames_u8.to(self.device)
         images, scale = letterbox_batch(frames, src_hw, self.cfg.detector.image_size)
         dets = dispatch_detect(self.detector, self.cfg, images)
         return self._track(self._frame_dets(dets)).to_numpy(), scale

@@ -49,7 +49,7 @@ from waymo_2d_tracking_tpu_torch.models.quant import is_calibrated
 from waymo_2d_tracking_tpu_torch.pipeline.tta import detect_tta_batch
 from waymo_2d_tracking_tpu_torch.tracker import init_state
 from waymo_2d_tracking_tpu_torch.tracker.graph import track_chunk
-from waymo_2d_tracking_tpu_torch.types import Detections
+from waymo_2d_tracking_tpu_torch.types import Detections, TrackerState
 
 
 @dataclasses.dataclass
@@ -215,6 +215,27 @@ class SegmentPipeline:
         h, w = src_hw
         return letterbox_batch(frames, (-(-h // sd), -(-w // sd)), self.cfg.detector.image_size)
 
+    def _detect_chunk(self, frames: torch.Tensor, src_hw) -> Tuple[Detections, torch.Tensor]:
+        """Device (chunk, H, W, 3) uint8 frames -> (detections, letterbox
+        scale): downscaled by ``decode_scale_denom`` on the device where they
+        are larger than ``src_hw`` (the size after that downscale), the int8
+        calibration hook, letterbox, detect."""
+        if tuple(frames.shape[1:3]) != tuple(src_hw):
+            frames = area_downscale(frames, self.cfg.pipeline.decode_scale_denom)
+        self.ensure_calibrated(frames, src_hw)
+        images, scale = letterbox_batch(frames, src_hw, self.cfg.detector.image_size)
+        return dispatch_detect(self.detector, self.cfg, images), scale
+
+    def chunk_step(self, state: TrackerState, frames: torch.Tensor, src_hw):
+        """One chunk of the segment path (the JAX package's ``_chunk_step``):
+        (state, device (chunk, H, W, 3) uint8 frames, ``src_hw``) -> (state',
+        outputs on the device (chunk, S, ...), letterbox scale). The tracker
+        steps through the chunk's frames, on the card by the captured step
+        (``tracker/graph.py``) this pipeline keeps."""
+        dets, scale = self._detect_chunk(frames, src_hw)
+        state, outputs = track_chunk(state, dets, self.cfg.tracker, self._graphs)
+        return state, outputs, scale
+
     def run_segment(
         self, segment: SegmentFrames, detections_only: bool = False,
     ) -> Tuple[List[subm.TrackRecord], dict]:
@@ -239,15 +260,11 @@ class SegmentPipeline:
         with DevicePrefetcher(blocks, depth=cfg.pipeline.prefetch_depth,
                               device=self.device) as prefetcher:
             for frames in prefetcher:
-                if card_downscale:
-                    frames = area_downscale(frames, sd)
-                self.ensure_calibrated(frames, src_hw)
-                images, scale = letterbox_batch(frames, src_hw, cfg.detector.image_size)
-                dets = dispatch_detect(self.detector, cfg, images)
                 if detections_only:
+                    dets, scale = self._detect_chunk(frames, src_hw)
                     fetcher.push(dets)
                 else:
-                    state, outputs = track_chunk(state, dets, cfg.tracker, self._graphs)
+                    state, outputs, scale = self.chunk_step(state, frames, src_hw)
                     fetcher.push(outputs)
         outputs_host = fetcher.finish()
         if not detections_only:

@@ -19,10 +19,12 @@ have nothing to do here.
 Each rank writes its own segment files. The rank at (data 0, model 0) alone
 writes ``manifest.jsonl``: after each group it gathers the group's stats
 rows from every rank (JAX's keys, ``shard`` the slot) and appends them in
-group order, after the segments' files exist. Every rank reads the done keys
-before the first group, walks the same (lazy) stream and decodes only its own
-slot; ``fail_after`` raises on every rank at the same group. Ranks on the
-model axis other than 0 run nothing: the axis is reserved, as in JAX.
+group order, after the segments' files exist. After a first barrier (every
+rank has left any earlier call, one that raised included) the writer alone
+reads the done keys and broadcasts them; every rank then walks the same
+(lazy) stream and decodes only its own slot; ``fail_after`` raises on every
+rank at the same group. Ranks on the model axis other than 0 run nothing:
+the axis is reserved, as in JAX.
 """
 from __future__ import annotations
 
@@ -120,8 +122,14 @@ def _drive(run_group, items: Iterable, keys_of, hw_of, g: int, out_dir: str, mes
     bucket at the end; rank (0, 0) appends each group's rows to the
     manifest."""
     os.makedirs(out_dir, exist_ok=True)
-    done = load_done_keys(out_dir)
-    barrier(mesh)     # every rank has read the done keys before any write
+    # every rank has left any earlier call (one that raised too), so the
+    # writer's appends are on disk; the writer alone reads the done keys and
+    # sends them, so every rank skips the same items and meets the same
+    # collectives
+    barrier(mesh)
+    box = [load_done_keys(out_dir) if is_writer(mesh) else None]
+    dist.broadcast_object_list(box, src=int(mesh.mesh[0, 0]))
+    done = box[0]
     all_stats: List[dict] = []
     n_run = 0
 

@@ -145,14 +145,20 @@ def manifest_keys(out_dir: str) -> List[str]:
 
 def fanout_case(rank: int, world: int, device: str, cfg, out_root: str,
                 seg_plan: Sequence[dict] = (), mixed_plan: Sequence[dict] = (),
-                mc_cfg=None, ctx_plan: Sequence[dict] = (), seed: int = 0) -> dict:
+                mc_cfg=None, ctx_plan: Sequence[dict] = (), seed: int = 0,
+                slow_append: float = 0.0) -> dict:
     """The sharded fan-out: ``seg_plan``'s segments through
     ``run_segments_sharded`` (tracks, a rerun, detections only);
     ``mixed_plan``'s (mixed resolutions) through it with the stream's
     consumption and the manifest seen at each step recorded, then in a fresh
     directory with ``fail_after=2`` and resumed; ``ctx_plan``'s cameras
     through ``run_context_groups_sharded`` with ``mc_cfg`` (and a rerun, and
-    a context short of a camera). Pipelines from ``seed``."""
+    a context short of a camera). Pipelines from ``seed``. ``slow_append``:
+    the mixed plan's fault and resume once more, in another directory, the
+    writer sleeping that many seconds before each manifest append of the
+    call that raises, so the other ranks leave it and start the resumed call
+    first."""
+    from waymo_2d_tracking_tpu_torch.pipeline import sharded
     from waymo_2d_tracking_tpu_torch.pipeline.multicam import MultiCamPipeline
     from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentPipeline
     from waymo_2d_tracking_tpu_torch.pipeline.sharded import (
@@ -192,9 +198,28 @@ def fanout_case(rank: int, world: int, device: str, cfg, out_root: str,
             run_segments_sharded(pipe, _segments(mixed_plan), d, mesh=mesh, fail_after=2)
         except RuntimeError as e:
             out["fault"] = str(e)
+        shd.barrier(mesh)     # the manifest as the writer left it
         out["fault_manifest"] = manifest_keys(d)
         out["resumed"] = run_segments_sharded(pipe, _segments(mixed_plan), d, mesh=mesh)
         out["resumed_manifest"] = manifest_keys(d)
+        if slow_append:
+            d = os.path.join(out_root, "fault_slow")
+            append = sharded.append_manifest
+
+            def slow(out_dir, stats):
+                time.sleep(slow_append)
+                append(out_dir, stats)
+
+            if shd.is_writer(mesh):
+                sharded.append_manifest = slow
+            try:
+                run_segments_sharded(pipe, _segments(mixed_plan), d, mesh=mesh, fail_after=2)
+            except RuntimeError as e:
+                out["slow_fault"] = str(e)
+            finally:
+                sharded.append_manifest = append
+            out["slow_resumed"] = run_segments_sharded(pipe, _segments(mixed_plan), d, mesh=mesh)
+            out["slow_resumed_manifest"] = manifest_keys(d)
     if ctx_plan:
         cams = len(mc_cfg.pipeline.cameras)
         mc = MultiCamPipeline(mc_cfg, num_cams=cams, device=device, seed=seed)
