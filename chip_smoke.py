@@ -103,6 +103,26 @@ Phases (any failed check raises, and the script exits non-zero):
    32 ticks after a warm-up: latency percentiles, 1 NMS and 1 auction
    launch a tick) and ``online_headline`` (``OnlineTracker`` on the
    headline, 64 frames of 640x960 after a warm-up).
+P. the shipped presets no other phase runs, each read from ``configs/`` by
+   the port's ``load_config`` at full width in bf16 with seeded random
+   weights, config 4's lowered tracker gates on the ResNet-50 presets, a
+   warm-up chunk then 2 runs of 2 chunks (after config 4, on its rig
+   frames): P2 ``config2_detector_iou`` and P3 ``config3_reid_fused`` (one
+   1280x1920 camera, chunk 8) and P4 ``robust`` (the headline's frames at
+   1280x1920, decoded at its denom 2, three association stages) through
+   ``phase_main_path``; P5 ``config5_full_sweep`` (5 cameras, chunk 4, six
+   TTA views up to 1600x2400) through ``MultiCamPipeline
+   .run_segments_group``, its split timing every view alone. For each:
+   frames/s (camera-frames/s), peak memory, the split, NMS and auction
+   launches equal to the count the config gives, the captured step equal to
+   the eager loop, one chunk's NMS inputs and one frame's benefit tensors
+   (every stage) taken from the path through ``csrc/nms.cu`` /
+   ``csrc/auction.cu`` and their plain versions, bit-equal, and ``cli track
+   --config configs/<preset>`` (``--multicam`` for P5) on a directory
+   segment written by ``materialize_directory_segment``, byte-equal to the
+   driver called directly; P5 also holds each camera to a single-camera
+   ``SegmentPipeline`` on its frames (float32, the rig's batch), byte for
+   byte.
 
 T. training (``train/train.py``): T1 one ``train_step`` at the tiny parity
    config (float32, TF32 off) on the card and on the CPU from the same
@@ -1534,15 +1554,17 @@ def device_busy(torch, pipe, frames, chunk, card):
 
 
 def phase_main_path(np, torch, counters, card, name, preset, frames, chunks, runs,
-                    trace=False, denom=1):
+                    trace=False, denom=1, check=None):
     """One main path at full width: warm-up chunk, then ``runs`` runs of
     ``chunks`` chunks with every kernel count set to 0 just before each run
     and read just after (replays of the captured tracker step count their
     launches); the chunk split with the graph held to the eager loop; output
     checks. ``denom`` overrides the preset's ``decode_scale_denom``; None
-    keeps the preset's own. Returns the launch counts of the first run
-    (``launches``), that run's records, the chunk split and, on an int8
-    path, its quantized convs' times (``int8_convs``, else None)."""
+    keeps the preset's own. ``check(pipe)``, when given, runs last, outside
+    the counted runs. Returns the launch counts of the first run
+    (``launches``), that run's records, the chunk split, frames/s and peak
+    memory and, on an int8 path, its quantized convs' times (``int8_convs``,
+    else None)."""
     from waymo_2d_tracking_tpu_torch.config import Config, _update
     from waymo_2d_tracking_tpu_torch.pipeline.run import (
         SegmentFrames, SegmentPipeline, tta_active,
@@ -1610,8 +1632,9 @@ def phase_main_path(np, torch, counters, card, name, preset, frames, chunks, run
             "with torch.cuda.set_sync_debug_mode('error'): no synchronizing call detected")
 
     d = dets.to_numpy()
+    # without a ReID head the detections carry a zero embedding of width 1
     if d.boxes.shape != (chunk, cfg.detector.max_detections, 4) or \
-            d.embeds.shape != (chunk, cfg.detector.max_detections, cfg.detector.embed_dim):
+            d.embeds.shape != (chunk, cfg.detector.max_detections, max(cfg.detector.embed_dim, 1)):
         raise AssertionError(f"{name} detections have shapes {d.boxes.shape} {d.embeds.shape}")
     if not (np.isfinite(d.boxes).all() and np.isfinite(d.scores).all()
             and np.isfinite(d.embeds).all()):
@@ -1621,16 +1644,18 @@ def phase_main_path(np, torch, counters, card, name, preset, frames, chunks, run
     if cfg.detector.head_family == "fcos" and not d.valid.any():
         raise AssertionError(f"{name}: every detection is invalid")
     norms = np.linalg.norm(d.embeds[d.valid], axis=-1)
-    if not np.allclose(norms, 1.0, atol=1e-3):
+    if cfg.detector.embed_dim and not np.allclose(norms, 1.0, atol=1e-3):
         raise AssertionError(f"{name} ReID embeddings are not unit norm")
     if not np.isfinite(outs.to_numpy().boxes).all():
         raise AssertionError(f"{name} track boxes are not finite")
     log(f"[3] {name} outputs finite; valid detections per frame {d.valid.sum(1).mean():.2f}, "
         f"max score {d.scores.max():.3f} (random weights)")
+    if check is not None:
+        check(pipe)
     del pipe
     torch.cuda.empty_cache()
     return {"launches": launch_runs[0], "records": first_records, "split": split,
-            "int8_convs": int8_convs}
+            "int8_convs": int8_convs, "fps": fps_runs, "peak_gb": peak_gb}
 
 
 def check_int8_count(name, cfg, counts):
@@ -1876,7 +1901,8 @@ def phase_online(np, torch, counters, card, name, session, frames, ticks, per_ti
 
 
 def phase_new_paths(np, torch, counters, card, headline_frames, plans):
-    """Config 4, the online drivers and S3; saves D2's frames into ``plans``."""
+    """Config 4, the online drivers, S3 and phase P (the shipped presets, on
+    the same rig frames); saves D2's frames into ``plans``."""
     from waymo_2d_tracking_tpu_torch.config import Config, _update
     from waymo_2d_tracking_tpu_torch.pipeline.online import OnlineMultiCamTracker, OnlineTracker
 
@@ -1899,6 +1925,8 @@ def phase_new_paths(np, torch, counters, card, headline_frames, plans):
     t0 = time.perf_counter()
     paths["serve_rig"] = phase_serve_rig(np, torch, counters, card, frames)
     log(f"[S3] done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    paths.update(phase_presets(np, torch, counters, card, frames, headline_frames))
     del frames
     torch.cuda.empty_cache()
 
@@ -1908,6 +1936,382 @@ def phase_new_paths(np, torch, counters, card, headline_frames, plans):
     paths["online_headline"] = phase_online(np, torch, counters, card, "online_headline", sess,
                                             headline_frames, 64,
                                             {"nms_mask": 1, "auction": stages_of(cfg)})
+    return paths
+
+
+# ----------------------------------------------------------------- phase P
+
+# Phase P runs the shipped presets as shipped but for the tracker gates
+# their random weights need: configs 2, 3 and 5 run the default ResNet-50
+# detector, which scores at most ~0.23 with seeded random weights, so they
+# take config 4's lowered gates (CONFIG4_RANDOM_WEIGHT_GATES). robust runs
+# the headline detector, whose random weights score up to ~0.8 (phase 3),
+# with its own gates: a score gate of 0.1 would also be refused there, as
+# robust's BYTE band starts at 0.1.
+
+
+def preset_path(file: str) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs", file)
+
+
+def preset_dict(file: str, gates) -> dict:
+    """``configs/<file>`` as a dict with ``gates`` over its tracker section."""
+    import yaml
+
+    with open(preset_path(file)) as f:
+        data = yaml.safe_load(f)
+    data["tracker"] = {**data.get("tracker", {}), **gates}
+    return data
+
+
+@contextlib.contextmanager
+def kernel_inputs(module, name):
+    """Every call of ``module.<name>`` while the context is open goes through
+    to the wrapper, its tensor arguments cloned into the yielded list as
+    (args, kwargs): the inputs the path hands the kernel."""
+    wrapper = getattr(module, name)
+    calls = []
+
+    def record(*args, **kw):
+        calls.append(([a.clone() if hasattr(a, "clone") else a for a in args], dict(kw)))
+        return wrapper(*args, **kw)
+
+    # the wrapper counts its launch on the module's name for it, ``record``
+    # while the context is open: those launches are not a main path's
+    record.launches, record.last_shape = 0, None
+    setattr(module, name, record)
+    try:
+        yield calls
+    finally:
+        setattr(module, name, wrapper)
+
+
+def preset_kernels(torch, card, name, cfg, detect, init, want_nms, want_auction):
+    """NMS and the auction at a preset's own shapes: ``detect()`` gives one
+    chunk's detections (its NMS inputs recorded: the candidate union after
+    the ``nms_topk`` cut), the eager loop over them from ``init`` records
+    every stage's benefit tensors; the frame with the most feasible problems
+    goes through each kernel and its plain version on the card, which must
+    agree bit for bit, at (B, N) ``want_nms`` and (P, n) ``want_auction``."""
+    from waymo_2d_tracking_tpu_torch.ops import assign, nms
+    from waymo_2d_tracking_tpu_torch.tracker import track_segment
+
+    with kernel_inputs(nms, "nms_mask_cuda") as nms_calls:
+        dets = detect()
+    with kernel_inputs(assign, "auction_kernel_cuda") as auction_calls:
+        track_segment(init, dets, cfg.tracker)
+    torch.cuda.synchronize()
+    if len(nms_calls) != 1:
+        raise AssertionError(f"{name}: {len(nms_calls)} NMS launches in one chunk's detect")
+    (boxes, valid, thr), _ = nms_calls[0]
+    keep, plain = nms.nms_mask_cuda(boxes, valid, thr), nms.nms_mask_reference(boxes, valid, thr)
+    if tuple(valid.shape) != want_nms or not torch.equal(keep, plain):
+        raise AssertionError(f"{name}: NMS at {tuple(valid.shape)} (want {want_nms}) differs "
+                             f"from its plain version in {int((keep != plain).sum())} entries")
+    nms_ms = cuda_time_ms(lambda: nms.nms_mask_cuda(boxes, valid, thr), reps=20)
+    stages = stages_of(cfg)
+    frames = [auction_calls[t:t + stages] for t in range(0, len(auction_calls), stages)]
+    pick = max(range(len(frames)),
+               key=lambda t: (sum(int(args[2].sum()) for args, _ in frames[t]), t))
+    report = []
+    for stage, ((ben, eps0, feasible), kw) in enumerate(frames[pick]):
+        got = assign.auction_kernel_cuda(ben, eps0, feasible, **kw)
+        want = assign.auction_kernel_reference(ben, eps0, feasible, **kw)[0]
+        if (ben.shape[0], ben.shape[-1]) != want_auction or not torch.equal(got, want):
+            raise AssertionError(f"{name}: auction stage {stage} at {tuple(ben.shape)} (want "
+                                 f"(P, n) {want_auction}) differs from its plain version")
+        ms = cuda_time_ms(lambda: assign.auction_kernel_cuda(ben, eps0, feasible, **kw), reps=10)
+        report.append({"stage": stage, "feasible": int(feasible.sum()),
+                       "assigned": int((got >= 0).sum()), "ms": round(ms, 4)})
+    if not report[0]["feasible"]:
+        raise AssertionError(f"{name}: no feasible first-stage problem in any frame of the chunk")
+    log(f"[{name}] kernels at the preset's shapes, bit-equal to their plain versions on the "
+        f"card ({card}): NMS (B, N) {tuple(valid.shape)}, {int(valid.sum())} valid candidates, "
+        f"{int(keep.sum())} kept, {nms_ms:.4f} ms a launch; the auction in frame {pick} of "
+        f"{len(frames)} (the most feasible problems), {stages} stage(s) at (P, n) "
+        f"{want_auction}: {json.dumps(report)}")
+
+
+def preset_cli(np, torch, card, name, file, gates, cfg, frames, direct):
+    """``cli track --config configs/<file>`` (``--multicam`` for a rig) on a
+    directory segment that ``materialize_directory_segment`` writes from
+    ``frames`` ((T, H, W, 3), or (T, cams, H, W, 3) for a rig), against
+    ``direct(segments, out_dir)``, the driver called directly with the same
+    seeded weights: every camera's JSONL byte-equal."""
+    from waymo_2d_tracking_tpu_torch.data.waymo import (
+        CAMERA_NAMES, iter_segments, materialize_directory_segment,
+    )
+
+    root = os.path.join(scratch_dir(), f"preset_{name}")
+    shutil.rmtree(root, ignore_errors=True)
+    segs, cli_out, direct_out = (os.path.join(root, d) for d in ("segs", "cli", "direct"))
+    ts = [100_000 * t for t in range(frames.shape[0])]
+    rig = frames.ndim == 5
+    cams = cfg.pipeline.cameras if rig else cfg.pipeline.cameras[:1]
+    for c, cam in enumerate(cams):
+        materialize_directory_segment(segs, name, frames[:, c] if rig else frames, ts,
+                                      camera_id=CAMERA_NAMES[cam])
+    sets = ["--set"] + [f"tracker.{k}={v}" for k, v in gates.items()] if gates else []
+    argv = (["track", "--config", preset_path(file), "--segments-dir", segs, "--out-dir",
+             cli_out] + (["--multicam"] if rig else []) + sets)
+    code, lines = cli_quiet(argv)
+    if code not in (None, 0):
+        raise AssertionError(f"{name}: {' '.join(argv)} exited {code}")
+    direct(iter_segments(segs, cameras=cfg.pipeline.cameras), direct_out)
+    names = sorted(f for f in os.listdir(direct_out) if f.endswith(".jsonl")
+                   and f != "manifest.jsonl")
+    records = []
+    for f in names:
+        with open(os.path.join(cli_out, f), "rb") as a, open(os.path.join(direct_out, f),
+                                                            "rb") as b:
+            got, want = a.read(), b.read()
+        if got != want:
+            raise AssertionError(f"{name}: cli track wrote other bytes than the driver in {f}")
+        records.append(want.count(b"\n"))
+    if len(names) != len(cams) or not sum(records):
+        raise AssertionError(f"{name}: cli track wrote {names} with {records} records")
+    log(f"[{name}] cli track --config configs/{file}{' --multicam' if rig else ''} "
+        f"{' '.join(sets)} on a {frames.shape[0]}-frame directory segment "
+        f"({len(cams)} camera(s), JPEG) byte-equal to the driver called directly: records per "
+        f"camera {records}; stats {lines} ({card})")
+    shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_preset(np, torch, counters, card, name, file, gates, frames, chunks):
+    """P2-P4: one shipped single-camera preset through ``phase_main_path``
+    (a warm-up chunk, 2 runs of ``chunks`` chunks, the split with the graph
+    held to the eager loop, launch counts), then the kernels at its shapes
+    and ``cli track`` against the driver."""
+    from waymo_2d_tracking_tpu_torch.data.preprocess import area_downscale, letterbox_batch
+    from waymo_2d_tracking_tpu_torch.ops.assign import _round_up_128
+    from waymo_2d_tracking_tpu_torch.pipeline.run import dispatch_detect, run_segments
+    from waymo_2d_tracking_tpu_torch.tracker import init_state
+
+    t0 = time.perf_counter()
+
+    def check(pipe):
+        cfg = pipe.cfg
+        chunk, sd = cfg.pipeline.chunk_frames, cfg.pipeline.decode_scale_denom
+        src_hw = tuple(-(-x // sd) for x in frames.shape[1:3])
+
+        def detect():
+            block = area_downscale(torch.from_numpy(frames[:chunk]).to("cuda"), sd)
+            images, _ = letterbox_batch(block, src_hw, cfg.detector.image_size)
+            return dispatch_detect(pipe.detector, cfg, images)
+
+        n = _round_up_128(max(cfg.tracker.max_tracks, cfg.detector.max_detections))
+        preset_kernels(torch, card, name, cfg, detect, init_state(cfg.tracker, device="cuda"),
+                       (chunk, cfg.detector.nms_topk), (1, n))
+        preset_cli(np, torch, card, name, file, gates, cfg, frames[:min(chunk, 16)],
+                   lambda segs, out: run_segments(pipe, segs, out))
+
+    result = phase_main_path(np, torch, counters, card, name, preset_dict(file, gates), frames,
+                             chunks=chunks, runs=2, denom=None, check=check)
+    if not result["records"]:
+        raise AssertionError(f"{name}: the main path wrote no records")
+    log(f"[{name}] configs/{file} done in {time.perf_counter() - t0:.1f} s ({card})")
+    return result
+
+
+def tta_split(torch, pipe, block):
+    """Config 5's chunk split, CUDA events, the chunk ((chunk, cams, H, W, 3)
+    host frames at source size) copied and letterboxed, then each view's
+    scale, flip, forward and candidates timed alone (the unflipped 1.0 view
+    reuses the base forward, which the first stage holds), then the union's
+    NMS, RoIAlign and ReID, the tracker loop graphed and the eager loop on
+    the same detections, which must agree bit for bit."""
+    from waymo_2d_tracking_tpu_torch.data.preprocess import letterbox_batch
+    from waymo_2d_tracking_tpu_torch.models.detector import gather_candidates_batched
+    from waymo_2d_tracking_tpu_torch.pipeline.multicam import split_cameras
+    from waymo_2d_tracking_tpu_torch.pipeline.tta import flip_image, scale_image, unflip_boxes
+    from waymo_2d_tracking_tpu_torch.tracker import init_multicam_state, track_segment
+    from waymo_2d_tracking_tpu_torch.tracker.graph import track_chunk
+
+    cfg, runner = pipe.cfg, pipe.detector
+    chunk, cams = block.shape[:2]
+    views = [(s, f) for s in cfg.pipeline.tta_scales for f in (False, True)]
+    names = (["letterbox_ms", "base_forward_ms"]
+             + [f"view_{s}{'_flip' if f else ''}_ms" for s, f in views]
+             + ["union_nms_roi_align_reid_ms", "tracker_loop_ms", "tracker_loop_eager_ms"])
+    runs = []
+    for _ in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(names) + 1)]
+        ev[0].record()
+        flat = torch.from_numpy(block.reshape((chunk * cams,) + block.shape[2:])).to("cuda")
+        images, _ = letterbox_batch(flat, tuple(block.shape[2:4]), cfg.detector.image_size)
+        ev[1].record()
+        base, p_feats = runner.forward(images)
+        ev[2].record()
+        cand = []
+        for i, (s, flipped) in enumerate(views):
+            img = scale_image(images, s) if s != 1.0 else images
+            head = base if (s == 1.0 and not flipped) else runner.forward(
+                flip_image(img) if flipped else img)[0]
+            boxes, scores, classes = gather_candidates_batched(head, cfg.detector)
+            if flipped:
+                boxes = unflip_boxes(boxes, img.shape[2])
+            cand.append((boxes / s, scores, classes))
+            ev[3 + i].record()
+        union = tuple(torch.cat([c[k] for c in cand], dim=1) for k in range(3))
+        dets = split_cameras(runner.select(union, p_feats), chunk, cams)
+        ev[3 + len(views)].record()
+        fresh = init_multicam_state(cfg, cams, device="cuda")
+        states, outs = track_chunk(fresh, dets, cfg.tracker, pipe._graphs)
+        ev[4 + len(views)].record()
+        e_states, e_outs = track_segment(fresh, dets, cfg.tracker)
+        ev[5 + len(views)].record()
+        ev[-1].synchronize()
+        runs.append([ev[i].elapsed_time(ev[i + 1]) for i in range(len(names))])
+        if not (same_records(torch, states, e_states) and same_records(torch, outs, e_outs)):
+            raise AssertionError("P5: the captured step differs from the eager loop")
+    return {k: statistics.median(r[i] for r in runs) for i, k in enumerate(names)}, runs, dets
+
+
+def phase_config5(np, torch, counters, card, frames):
+    """P5: ``configs/config5_full_sweep.yaml`` through
+    ``MultiCamPipeline.run_segments_group``: 5 cameras of 1280x1920 frames,
+    chunk 4, six TTA views (flip x 0.75 / 1.0 / 1.25: a 20-image forward a
+    view, up to 1600x2400), ReID recovery, gap fill 5; a warm-up chunk, then
+    2 runs of 2 chunks: camera-frames/s, peak memory, launches per chunk (1
+    NMS at (20, 1024), 8 auction at P = 5, n = 128), the split with every
+    view alone, the kernels at these shapes, each camera against a
+    single-camera ``SegmentPipeline`` on its frames (the invariant of the
+    JAX package's ``test_multicam_tta.py``, in float32), and ``cli track
+    --multicam`` against ``run_context_groups``."""
+    import tempfile
+
+    from waymo_2d_tracking_tpu_torch.config import load_config
+    from waymo_2d_tracking_tpu_torch.data.preprocess import letterbox_batch
+    from waymo_2d_tracking_tpu_torch.io_out import submission as subm
+    from waymo_2d_tracking_tpu_torch.pipeline.multicam import (
+        MultiCamPipeline, run_context_groups, split_cameras,
+    )
+    from waymo_2d_tracking_tpu_torch.pipeline.run import (
+        SegmentFrames, SegmentPipeline, dispatch_detect,
+    )
+    from waymo_2d_tracking_tpu_torch.tracker import init_multicam_state
+
+    t0 = time.perf_counter()
+    file, gates = "config5_full_sweep.yaml", CONFIG4_RANDOM_WEIGHT_GATES
+    cfg = load_config(preset_path(file), {"tracker": gates})
+    chunk, cams = cfg.pipeline.chunk_frames, len(cfg.pipeline.cameras)
+    views = (2 if cfg.pipeline.tta_flip else 1) * len(cfg.pipeline.tta_scales)
+    stages = stages_of(cfg)
+    pipe = MultiCamPipeline(cfg, num_cams=cams, device="cuda", seed=0)
+
+    def group(lo, hi):
+        return [SegmentFrames("config5", cam + 1, list(range(hi - lo)), frames[lo:hi, cam])
+                for cam in range(cams)]
+
+    chunks = 2
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as out:
+        pipe.run_segments_group(group(0, chunk), out)                 # warm-up chunk
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rates, launch_runs = [], []
+        for _ in range(2):
+            zero_counts(counters)
+            t1 = time.perf_counter()
+            stats = pipe.run_segments_group(group(chunk, chunk * (chunks + 1)), out)
+            wall = time.perf_counter() - t1
+            launch_runs.append(read_counts(counters))
+            rates.append(chunks * chunk * cams / wall)
+            shapes = (counters["nms_mask"].last_shape, counters["auction"].last_shape)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        multi = {cam + 1: subm.read_jsonl(os.path.join(out, f"config5_{cam + 1}.jsonl"))
+                 for cam in range(cams)}
+    per_chunk = {k: v / chunks for k, v in launch_runs[0].items()}
+    log(f"[P5] config5_full_sweep main path ({cams} cameras at {frames.shape[2]}x"
+        f"{frames.shape[3]}, chunk {chunk}, {views} views), 2 runs of {chunks} chunks: "
+        f"camera-frames/s {json.dumps(rates)} ({card}); peak device memory {peak_gb:.2f} GB; "
+        f"records per camera {json.dumps([s['records'] for s in stats])}; launches per run "
+        f"{json.dumps(launch_runs)}, per chunk {json.dumps(per_chunk)}; last NMS launch (B, N) "
+        f"{shapes[0]}, last auction launch (P, n) {shapes[1]}")
+    want = {"nms_mask": 1, "auction": chunk * stages}
+    check_int8_count("P5", cfg, launch_runs[0])
+    if any(lr[k] != v * chunks for lr in launch_runs for k, v in want.items()) \
+            or shapes[0] != (chunk * cams, cfg.detector.nms_topk) or shapes[1] != (cams, 128):
+        raise AssertionError(f"P5: expected per chunk {want}, NMS at ({chunk * cams}, "
+                             f"{cfg.detector.nms_topk}), the auction at (5, 128); got "
+                             f"{launch_runs}, {shapes}")
+    if not all(multi.values()):
+        raise AssertionError("P5: a camera has no records")
+
+    split, split_runs, dets = tta_split(torch, pipe, frames[chunk:2 * chunk])
+    log(f"[P5] {chunk}-frame chunk of {cams} cameras ({chunk * cams} images, {views} views) "
+        f"split, median of 3, the letterbox with its pageable copy ({card}): "
+        f"{json.dumps(split)}; each run: {json.dumps(split_runs)}; the captured step's states "
+        f"and outputs equal the eager loop's bit for bit in each run")
+    d = dets.to_numpy()
+    if not (np.isfinite(d.boxes).all() and np.isfinite(d.embeds).all() and d.valid.any()):
+        raise AssertionError("P5: detections are not finite or none is valid")
+
+    def detect():
+        block = frames[chunk:2 * chunk]
+        flat = torch.from_numpy(block.reshape((chunk * cams,) + block.shape[2:])).to("cuda")
+        images, _ = letterbox_batch(flat, tuple(block.shape[2:4]), cfg.detector.image_size)
+        return split_cameras(dispatch_detect(pipe.detector, cfg, images), chunk, cams)
+
+    preset_kernels(torch, card, "P5", cfg, detect, init_multicam_state(cfg, cams, device="cuda"),
+                   (chunk * cams, cfg.detector.nms_topk), (cams, 128))
+
+    # each camera alone through the single-camera driver, the same seeded
+    # weights, against the rig (the JAX package's test_multicam_tta.py
+    # invariant), in float32 (TF32 off) with the single camera's chunk the
+    # rig's batch (the pad repeats its last frame): on the card an image's
+    # bf16 forward rounds by the batch's size and by where the image sits in
+    # it (its 0.75 view's P4 logits by up to 0.24 at a 20-image batch's last
+    # place, probed), which moves random-weight detections and so the tracks;
+    # in float32 a 20-image batch gives each image the same bits anywhere
+    batch = chunk * cams
+    f32 = dataclasses.replace(cfg, detector=dataclasses.replace(cfg.detector, dtype="float32"))
+    rig32 = MultiCamPipeline(f32, num_cams=cams, device="cuda", seed=0)
+    solo = SegmentPipeline(dataclasses.replace(
+        f32, pipeline=dataclasses.replace(f32.pipeline, chunk_frames=batch)), device="cuda", seed=0)
+    agree = []
+    with tempfile.TemporaryDirectory(dir=scratch_dir()) as out:
+        rig32.run_segments_group(group(0, chunk), out)
+        for cam, seg in enumerate(group(0, chunk)):
+            records, _ = solo.run_segment(seg)
+            subm.write_jsonl(os.path.join(out, "solo.jsonl"), records)
+            with open(os.path.join(out, "solo.jsonl"), "rb") as a, \
+                    open(os.path.join(out, f"config5_{cam + 1}.jsonl"), "rb") as b:
+                agree.append((a.read() == b.read(), len(records)))
+    del rig32, solo
+    log(f"[P5] each camera of a {chunk}-frame rig run against a single-camera SegmentPipeline "
+        f"on its own frames, the same TTA preset in float32 with chunk {batch} (the rig's "
+        f"batch): JSONL byte-equal, records {agree} ({card})")
+    if not all(ok and n for ok, n in agree):
+        raise AssertionError(f"P5: cameras {[c + 1 for c, (ok, _) in enumerate(agree) if not ok]}"
+                             " differ from their single-camera runs")
+    preset_cli(np, torch, card, "P5", file, gates, cfg, frames[chunk:2 * chunk],
+               lambda segs, out: run_context_groups(pipe, segs, out))
+    del pipe
+    torch.cuda.empty_cache()
+    log(f"[P5] configs/{file} done in {time.perf_counter() - t0:.1f} s ({card})")
+    return {"launches": launch_runs[0], "fps": rates, "peak_gb": peak_gb, "split": split}
+
+
+def phase_presets(np, torch, counters, card, rig_frames, headline_frames):
+    """P. The shipped presets no earlier phase runs, as shipped apart from
+    the gates above, cut in depth only: P2 config 2 and P3 config 3 on
+    camera 1 of the config-4 rig's 1280x1920 frames (chunk 8), P4 robust on
+    the headline's 640x960 render upscaled to 1280x1920 and decoded at its
+    denom 2 (chunk 128, three association stages), P5 config 5 on the rig.
+    Returns each path's launches."""
+    t0 = time.perf_counter()
+    front = np.ascontiguousarray(rig_frames[:, 0])
+    paths = {name: phase_preset(np, torch, counters, card, name, file,
+                                CONFIG4_RANDOM_WEIGHT_GATES, front, chunks=2)["launches"]
+             for name, file in (("P2", "config2_detector_iou.yaml"),
+                                ("P3", "config3_reid_fused.yaml"))}
+    del front
+    up = headline_frames.repeat(2, axis=1).repeat(2, axis=2)
+    paths["P4"] = phase_preset(np, torch, counters, card, "P4", "robust.yaml", {}, up,
+                               chunks=2)["launches"]
+    del up
+    paths["P5"] = phase_config5(np, torch, counters, card, rig_frames)["launches"]
+    log(f"[P] done in {time.perf_counter() - t0:.1f} s ({card})")
     return paths
 
 

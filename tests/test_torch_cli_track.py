@@ -166,3 +166,47 @@ def test_detect_matches_jax(data, capsys):
                                      "{out}.jsonl", "--set"] + TINY, capsys, "detect")
     assert pl[0]["records"] == jl[0]["records"] > 0
     _same_records(pd + ".jsonl", str(data["dir"] / "detect_jax.jsonl"))
+
+
+def test_track_config2_preset_matches_the_driver(data, capsys):
+    """``track --config configs/config2_detector_iou.yaml`` with the tracker
+    and pipeline sections as shipped (gates 0.5 / 0.6, chunk 8, S = D =
+    128) and the detector narrowed by ``TINY``'s detector overrides writes
+    the bytes that ``SegmentPipeline.run_segment`` gives for the same
+    directory segments read back by ``iter_segments``. The weights are the
+    fixture's with the class-logit bias raised by 2.5, so that scores reach
+    the shipped gates (as in ``test_torch_presets_e2e.py``)."""
+    from waymo_2d_tracking_tpu_torch.config import load_config
+    from waymo_2d_tracking_tpu_torch.data.waymo import iter_segments
+    from waymo_2d_tracking_tpu_torch.io_out import submission as subm
+    from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentPipeline
+    from waymo_2d_tracking_tpu_torch.weights import from_flax_numpy, load_npz
+
+    preset = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                          "configs", "config2_detector_iou.yaml")
+    det = [a for a in TINY if a.startswith("detector.")]
+    flat = dict(np.load(data["npz"]))
+    flat["params/heads/cls_logits/bias"] = flat["params/heads/cls_logits/bias"] + np.float32(2.5)
+    params = str(data["dir"] / "params_shifted.npz")
+    np.savez(params, **flat)
+    out = str(data["dir"] / "config2_cli")
+    capsys.readouterr()
+    cli.main(["track", "--config", preset, "--segments-dir", data["segs"], "--out-dir", out,
+              "--params", params, "--device", "cpu", "--set", *det])
+    lines = [json.loads(x) for x in capsys.readouterr().out.strip().splitlines()]
+
+    cfg = load_config(preset, cli._parse_overrides(det))
+    assert (cfg.pipeline.chunk_frames, cfg.tracker.max_tracks, cfg.tracker.score_threshold,
+            cfg.tracker.birth_score_threshold) == (8, 128, 0.5, 0.6)
+    pipe = SegmentPipeline(cfg, from_flax_numpy(load_npz(params)), device="cpu")
+    total = 0
+    for seg, line in zip(iter_segments(data["segs"], cameras=cfg.pipeline.cameras), lines):
+        records, stats = pipe.run_segment(seg)
+        assert line["records"] == stats["records"] == len(records)
+        direct = str(data["dir"] / f"config2_direct_{seg.context_name}.jsonl")
+        subm.write_jsonl(direct, records)
+        with open(direct, "rb") as a, open(os.path.join(out, f"{seg.context_name}_1.jsonl"),
+                                           "rb") as b:
+            assert a.read() == b.read()
+        total += len(records)
+    assert len(lines) == 2 and total > 0
