@@ -921,7 +921,7 @@ def build_parser():
         sp.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                         help="where the verb computes (default cuda; raises without a card)")
         sp.add_argument("--profile", default=None,
-                        help="torch.profiler Chrome trace output dir")
+                        help="torch.profiler Chrome trace and the port's counters, output dir")
         sp.add_argument("--compile-cache", dest="compile_cache", default=None,
                         metavar="DIR|off",
                         help="where the CUDA kernels are built and found (default "

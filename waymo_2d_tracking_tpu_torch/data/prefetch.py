@@ -20,6 +20,12 @@ On a CUDA device the copy is asynchronous and overlaps the compute stream:
 On the CPU the same class yields plain tensors, with no pinning and no
 stream.
 
+Tracing (``utils/profiling.py``): the consumer's blocked wait for the next
+chunk is the span ``w2t/prefetch_wait``. The worker times each chunk's
+source, transform and copy and queues the seconds with the chunk; the
+consumer adds them to the counter ``prefetch_fill_s`` (the worker's thread
+reads no profiler).
+
 Lifecycle: ``close()`` (or leaving the ``with`` block) unblocks and joins the
 worker, which closes the source iterator in its own thread (running the
 source generator's ``finally``). An exception in the worker or the source is
@@ -30,12 +36,14 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import Callable, Iterable, Iterator, Optional
 
 import numpy as np
 import torch
 
 from waymo_2d_tracking_tpu_torch import resolve_device
+from waymo_2d_tracking_tpu_torch.utils.profiling import count, span
 
 _SENTINEL = object()
 
@@ -97,12 +105,14 @@ class DevicePrefetcher:
 
     def _worker(self, it: Iterator):
         try:
-            for item in it:
-                if self._stop.is_set():
+            while True:
+                t0 = time.perf_counter()
+                item = next(it, _SENTINEL)
+                if item is _SENTINEL or self._stop.is_set():
                     return
                 if self._transform is not None:
                     item = self._transform(item)
-                item = self._to_device(item)
+                item = self._to_device(item), time.perf_counter() - t0
                 # a put that stays responsive to close(): a plain put()
                 # would block forever once the consumer is gone
                 while True:
@@ -151,12 +161,15 @@ class DevicePrefetcher:
 
     def __iter__(self):
         while True:
-            item = self._queue.get()
+            with span("prefetch_wait"):
+                item = self._queue.get()
             if item is _SENTINEL:
                 if self._error is not None:
                     raise self._error
                 self._thread.join(timeout=10.0)
                 return
+            item, fill_s = item
+            count("prefetch_fill_s", fill_s)
             if self._cuda:
                 item, ready = item
                 stream = torch.cuda.current_stream(self.device)

@@ -23,6 +23,12 @@ the JAX package, no prefetch thread feeds this driver. Cameras given as JPEG
 bytes are decoded on the host at the scaled size. Under
 ``detector.quant='int8'`` the first real chunk's shared batch calibrates the
 activation scales.
+
+Under a profiler (``utils/profiling.py``) a group is the span ``w2t/group``,
+holding ``w2t/stack`` (the host taking each camera's next chunk and
+stacking them), ``w2t/chunk`` per chunk (``w2t/staging``, ``w2t/detect``,
+``w2t/track``), ``w2t/fetch`` and ``w2t/records``, with the counters of
+``pipeline/run.py``.
 """
 from __future__ import annotations
 
@@ -42,11 +48,15 @@ from waymo_2d_tracking_tpu_torch.pipeline.run import (
     RollingFetch,
     calibrate_params_from_frames,
     concat_host,
+    count_detections,
+    count_frames,
+    count_tracks,
     dispatch_detect,
 )
 from waymo_2d_tracking_tpu_torch.tracker import init_multicam_state
 from waymo_2d_tracking_tpu_torch.tracker.graph import track_chunk
 from waymo_2d_tracking_tpu_torch.types import Detections, TrackerState
+from waymo_2d_tracking_tpu_torch.utils.profiling import span
 
 __all__ = ["MultiCamPipeline", "init_multicam_state", "run_context_groups", "split_cameras"]
 
@@ -88,29 +98,41 @@ class MultiCamPipeline:
         calibrate_params_from_frames(self.detector, self.cfg, flat, src_hw)
         self._calibrated = True
 
-    def chunk_step(self, states: TrackerState, frames_u8, src_hw):
+    def chunk_step(self, states: TrackerState, frames_u8, src_hw, real: Optional[int] = None):
         """(states, (chunk, cams, H, W, 3) u8 at the size the chunk iterator
         gave, a host array or a tensor already on the device, ``src_hw`` the
         size after ``decode_scale_denom``) -> (states', outputs on the device
         (chunk, cams, S, ...), scale): one shared-backbone batch through the
         detector, then the camera-batched tracker. Frames larger than
-        ``src_hw`` are downscaled on the device."""
+        ``src_hw`` are downscaled on the device. ``real``: the chunk's real
+        frames (the rest repeat the last), for the counters; None: all."""
         t, c = frames_u8.shape[:2]
-        if isinstance(frames_u8, np.ndarray):
-            frames_u8 = torch.from_numpy(np.ascontiguousarray(frames_u8))
-        frames = frames_u8.reshape((t * c,) + tuple(frames_u8.shape[2:])).to(self.device)
-        if tuple(frames.shape[1:3]) != tuple(src_hw):
-            frames = area_downscale(frames, self.cfg.pipeline.decode_scale_denom)
-        self.ensure_calibrated(frames, src_hw)
-        images, scale = letterbox_batch(frames, src_hw, self.cfg.detector.image_size)
-        dets = split_cameras(dispatch_detect(self.detector, self.cfg, images), t, c)
-        states, outputs = track_chunk(states, dets, self.cfg.tracker, self._graphs)
+        with span("chunk"):
+            with span("staging"):
+                if isinstance(frames_u8, np.ndarray):
+                    frames_u8 = torch.from_numpy(np.ascontiguousarray(frames_u8))
+                frames = frames_u8.reshape((t * c,) + tuple(frames_u8.shape[2:])).to(self.device)
+                if tuple(frames.shape[1:3]) != tuple(src_hw):
+                    frames = area_downscale(frames, self.cfg.pipeline.decode_scale_denom)
+                self.ensure_calibrated(frames, src_hw)
+                images, scale = letterbox_batch(frames, src_hw, self.cfg.detector.image_size)
+            with span("detect"):
+                flat = dispatch_detect(self.detector, self.cfg, images)
+            count_detections(flat, None if real is None else real * c,
+                             self.cfg.tracker.birth_score_threshold)
+            dets = split_cameras(flat, t, c)
+            with span("track"):
+                states, outputs = track_chunk(states, dets, self.cfg.tracker, self._graphs)
         return states, outputs, scale
 
     def run_segments_group(self, segments, out_dir: str) -> List[dict]:
         """Per-camera ``SegmentFrames`` of one context (equal timestamps and
         resolutions) -> one submission JSONL and one gallery sidecar per
         camera in ``out_dir``; returns the per-camera stats."""
+        with span("group"):
+            return self._run_segments_group(segments, out_dir)
+
+    def _run_segments_group(self, segments, out_dir: str) -> List[dict]:
         cfg = self.cfg
         chunk = cfg.pipeline.chunk_frames
         sd = cfg.pipeline.decode_scale_denom
@@ -121,6 +143,7 @@ class MultiCamPipeline:
         assert len(segments) == self.num_cams
         ctx = segments[0].context_name
         t_total = segments[0].num_frames
+        count_frames(t_total, chunk, self.num_cams)
 
         states = init_multicam_state(cfg, self.num_cams, device=self.device)
         # on the card decoded full-size frames cross and chunk_step
@@ -131,37 +154,43 @@ class MultiCamPipeline:
         src_hw = segments[0].scaled_hw(sd)
         scale = 1.0
         try:
-            for _start in range(0, t_total, chunk):
-                blocks = [next(it) for it in iters]
-                hws = {b.shape[1:3] for b in blocks}
-                assert len(hws) == 1, (
-                    "multicam shared-backbone batch needs equal-resolution "
-                    f"cameras, got {sorted(hws)}; run mixed-resolution cameras "
-                    "as separate single-camera segments instead"
-                )
-                frames = np.stack(blocks, axis=1)   # (chunk, cams, H, W, 3)
-                states, outputs, scale = self.chunk_step(states, frames, src_hw)
+            for start in range(0, t_total, chunk):
+                with span("stack"):
+                    blocks = [next(it) for it in iters]
+                    hws = {b.shape[1:3] for b in blocks}
+                    assert len(hws) == 1, (
+                        "multicam shared-backbone batch needs equal-resolution "
+                        f"cameras, got {sorted(hws)}; run mixed-resolution cameras "
+                        "as separate single-camera segments instead"
+                    )
+                    frames = np.stack(blocks, axis=1)   # (chunk, cams, H, W, 3)
+                states, outputs, scale = self.chunk_step(states, frames, src_hw,
+                                                         min(chunk, t_total - start))
                 fetcher.push(outputs)
         finally:
             for it in iters:      # closes a JPEG source's decoder
                 it.close()
-        stacked = concat_host(fetcher.finish(), t_total)
-        final_states = states.to_numpy()
+        outputs_host = fetcher.finish()
+        with span("fetch"):
+            final_states = states.to_numpy()
         total_scale = float(scale) / sd
 
-        os.makedirs(out_dir, exist_ok=True)
-        stats = []
-        for ci, seg in enumerate(segments):
-            records = subm.records_from_track_outputs(
-                stacked[:, ci], ctx, seg.timestamps, seg.camera_name,
-                scale=total_scale, interp_max_gap=cfg.pipeline.interp_max_gap,
-            )
-            path = os.path.join(out_dir, f"{ctx}_{seg.camera_name}.jsonl")
-            subm.write_jsonl(path, records)
-            write_gallery_sidecar(path, final_states, cam_index=ci)
-            stats.append({"context": ctx, "camera": seg.camera_name,
-                          "frames": seg.num_frames, "records": len(records),
-                          "tracks": len({r.object_id for r in records})})
+        with span("records"):
+            stacked = concat_host(outputs_host, t_total)
+            count_tracks(stacked)
+            os.makedirs(out_dir, exist_ok=True)
+            stats = []
+            for ci, seg in enumerate(segments):
+                records = subm.records_from_track_outputs(
+                    stacked[:, ci], ctx, seg.timestamps, seg.camera_name,
+                    scale=total_scale, interp_max_gap=cfg.pipeline.interp_max_gap,
+                )
+                path = os.path.join(out_dir, f"{ctx}_{seg.camera_name}.jsonl")
+                subm.write_jsonl(path, records)
+                write_gallery_sidecar(path, final_states, cam_index=ci)
+                stats.append({"context": ctx, "camera": seg.camera_name,
+                              "frames": seg.num_frames, "records": len(records),
+                              "tracks": len({r.object_id for r in records})})
         return stats
 
     def run(self, frames: np.ndarray, states: Optional[TrackerState] = None):
@@ -177,14 +206,18 @@ class MultiCamPipeline:
             states = init_multicam_state(cfg, self.num_cams, device=self.device)
         fetcher = RollingFetch(depth=cfg.pipeline.prefetch_depth)
         scale = 1.0
+        count_frames(t_total, chunk, self.num_cams)
         for start in range(0, t_total, chunk):
             block = frames[start:start + chunk]
             if block.shape[0] < chunk:
                 pad = chunk - block.shape[0]
                 block = np.concatenate([block, np.repeat(block[-1:], pad, axis=0)])
-            states, outputs, scale = self.chunk_step(states, block, src_hw)
+            states, outputs, scale = self.chunk_step(states, block, src_hw,
+                                                     min(chunk, t_total - start))
             fetcher.push(outputs)
-        return states, concat_host(fetcher.finish(), t_total), scale
+        outputs = concat_host(fetcher.finish(), t_total)
+        count_tracks(outputs)
+        return states, outputs, scale
 
 
 def run_context_groups(pipeline: MultiCamPipeline, segments, out_dir: str,
@@ -220,7 +253,8 @@ def run_context_groups(pipeline: MultiCamPipeline, segments, out_dir: str,
         if fail_after is not None and n_run >= fail_after:
             raise RuntimeError(f"fault injection: stopping after {fail_after} contexts")
         stats = pipeline.run_segments_group(segs, out_dir)
-        append_manifest(out_dir, stats)
+        with span("records"):
+            append_manifest(out_dir, stats)
         all_stats.extend(stats)
         n_run += 1
     return all_stats

@@ -28,6 +28,12 @@ map back to source pixels through that scale too. Under
 ``detector.quant='int8'`` a session calibrates on its first real frame or
 tick (not in ``warmup``, whose all-zero frame would record a zero absmax);
 the warm-up runs the int8 forward uncalibrated and throws its outputs away.
+
+Under a profiler (``utils/profiling.py``) a timed step is the span
+``w2t/tick``, holding ``w2t/stack`` (decode or stack the frames),
+``w2t/staging``, ``w2t/detect``, ``w2t/track`` and ``w2t/fetch`` (the
+outputs to the host); a step's records are ``w2t/records``. The counters
+are ``pipeline/run.py``'s, every frame real.
 """
 from __future__ import annotations
 
@@ -43,10 +49,17 @@ from waymo_2d_tracking_tpu_torch.data.jpeg import BatchJpegDecoder, jpeg_dims
 from waymo_2d_tracking_tpu_torch.data.preprocess import letterbox_batch
 from waymo_2d_tracking_tpu_torch.io_out import submission as subm
 from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
-from waymo_2d_tracking_tpu_torch.pipeline.run import calibrate_params_from_frames, dispatch_detect
+from waymo_2d_tracking_tpu_torch.pipeline.run import (
+    calibrate_params_from_frames,
+    count_detections,
+    count_frames,
+    count_tracks,
+    dispatch_detect,
+)
 from waymo_2d_tracking_tpu_torch.tracker import init_multicam_state, init_state, track_step
 from waymo_2d_tracking_tpu_torch.tracker.graph import CapturedTracker
 from waymo_2d_tracking_tpu_torch.types import Detections, TrackerState, TrackOutputs
+from waymo_2d_tracking_tpu_torch.utils.profiling import span
 
 
 Frame = Union[np.ndarray, bytes]
@@ -193,22 +206,33 @@ class _Session:
         if clear_latency:
             self._latency = _LatencyWindow(self._latency.maxlen)
 
-    def _device_step(self, frames_u8, src_hw):
+    def _device_step(self, frames_u8, src_hw, counted: bool = True):
         """(C, H, W, 3) uint8, a host array or a tensor already on the
         device -> (host TrackOutputs, scale); the live state advances by one
-        frame."""
-        if isinstance(frames_u8, np.ndarray):
-            frames_u8 = torch.from_numpy(np.ascontiguousarray(frames_u8))
-        frames = frames_u8.to(self.device)
-        images, scale = letterbox_batch(frames, src_hw, self.cfg.detector.image_size)
-        dets = dispatch_detect(self.detector, self.cfg, images)
-        return self._track(self._frame_dets(dets)).to_numpy(), scale
+        frame. ``counted``: add the frames, detections and tracks to the
+        counters (not for the warm-up's all-zero frames)."""
+        with span("staging"):
+            if isinstance(frames_u8, np.ndarray):
+                frames_u8 = torch.from_numpy(np.ascontiguousarray(frames_u8))
+            frames = frames_u8.to(self.device)
+            images, scale = letterbox_batch(frames, src_hw, self.cfg.detector.image_size)
+        with span("detect"):
+            dets = dispatch_detect(self.detector, self.cfg, images)
+        with span("track"):
+            outputs = self._track(self._frame_dets(dets))
+        with span("fetch"):
+            outputs = outputs.to_numpy()
+        if counted:
+            count_frames(1, 1, self.num_cams)
+            count_detections(dets, None, self.cfg.tracker.birth_score_threshold)
+            count_tracks(outputs)
+        return outputs, scale
 
     def _warmup(self, frames_u8: np.ndarray) -> float:
         t0 = time.perf_counter()
         saved = self.state
         with self.detector.uncalibrated_ok():
-            self._device_step(frames_u8, tuple(frames_u8.shape[1:3]))
+            self._device_step(frames_u8, tuple(frames_u8.shape[1:3]), False)  # not counted
         self.state = saved
         return time.perf_counter() - t0
 
@@ -217,10 +241,12 @@ class _Session:
         timed from the host frames to the outputs on the host. Returns
         (outputs, scale from network to source pixels)."""
         t0 = time.perf_counter()
-        frames_u8, denom = self._frame_decoder.decode_batch(frames)
-        src_hw = tuple(frames_u8.shape[1:3])
-        self._ensure_calibrated(frames_u8, src_hw)
-        outputs, scale = self._device_step(frames_u8, src_hw)
+        with span("tick"):
+            with span("stack"):
+                frames_u8, denom = self._frame_decoder.decode_batch(frames)
+            src_hw = tuple(frames_u8.shape[1:3])
+            self._ensure_calibrated(frames_u8, src_hw)
+            outputs, scale = self._device_step(frames_u8, src_hw)
         self._latency.add(time.perf_counter() - t0)
         self.frames_seen += 1
         return outputs, float(scale) / denom
@@ -263,9 +289,10 @@ class OnlineTracker(_Session):
         records, timed from the host frame to the records' arrays on the
         host."""
         outputs, scale = self._timed_step([frame])
-        return subm.records_from_track_outputs(
-            outputs[None], self.context_name, [timestamp_micros], self.camera_name,
-            scale=scale)
+        with span("records"):
+            return subm.records_from_track_outputs(
+                outputs[None], self.context_name, [timestamp_micros], self.camera_name,
+                scale=scale)
 
 
 class OnlineMultiCamTracker(_Session):
@@ -304,8 +331,9 @@ class OnlineMultiCamTracker(_Session):
             raise ValueError(f"expected {self.num_cams} frames, got {len(frames)}")
         outputs, scale = self._timed_step(list(frames))
         records: List[subm.TrackRecord] = []
-        for i, cam in enumerate(self.camera_names):
-            records.extend(subm.records_from_track_outputs(
-                outputs[i][None], self.context_name, [timestamp_micros], cam,
-                scale=scale))
+        with span("records"):
+            for i, cam in enumerate(self.camera_names):
+                records.extend(subm.records_from_track_outputs(
+                    outputs[i][None], self.context_name, [timestamp_micros], cam,
+                    scale=scale))
         return records

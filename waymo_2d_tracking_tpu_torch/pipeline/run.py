@@ -27,6 +27,16 @@ it. Under ``detector.quant='int8'`` the first real chunk calibrates the
 activation scales (``calibrate_params_from_frames``), as in every driver.
 ``run_segments`` drives many segments with manifest resume and writes a
 ``.gallery.npz`` sidecar beside each track file (``pipeline/link.py``).
+
+Under a profiler (``utils/profiling.py``) a segment is the span
+``w2t/segment``, holding ``w2t/prefetch_wait`` (the prefetcher's blocked
+wait), ``w2t/chunk`` per chunk (in it ``w2t/staging``, ``w2t/detect`` and
+``w2t/track``), ``w2t/fetch`` (outputs and the final table to the host) and
+``w2t/records``; the tail in ``run_segments`` (track file, sidecar,
+manifest) is ``w2t/records`` too. The counters: camera-frames
+``frames_real`` and ``frames_pad``, valid detections over real frames
+``det_valid`` and those at or above the tracker's birth gate ``det_birth``
+(both summed on the device), and valid track slots ``track_live``.
 """
 from __future__ import annotations
 
@@ -50,6 +60,7 @@ from waymo_2d_tracking_tpu_torch.pipeline.tta import detect_tta_batch
 from waymo_2d_tracking_tpu_torch.tracker import init_state
 from waymo_2d_tracking_tpu_torch.tracker.graph import track_chunk
 from waymo_2d_tracking_tpu_torch.types import Detections, TrackerState
+from waymo_2d_tracking_tpu_torch.utils.profiling import count, span, tracing
 
 
 @dataclasses.dataclass
@@ -149,12 +160,37 @@ class RollingFetch:
     def push(self, outputs) -> None:
         self._dev.append(outputs)
         if len(self._dev) > self.depth:
-            self._host.append(self._dev.pop(0).to_numpy())
+            with span("fetch"):
+                self._host.append(self._dev.pop(0).to_numpy())
 
     def finish(self) -> List:
-        self._host.extend(o.to_numpy() for o in self._dev)
+        with span("fetch"):
+            self._host.extend(o.to_numpy() for o in self._dev)
         self._dev = []
         return self._host
+
+
+def count_frames(t_total: int, chunk: int, cams: int = 1) -> None:
+    """The counters of a unit of ``t_total`` frames a camera in chunks of
+    ``chunk``: real and repeat-padded camera-frames."""
+    count("frames_real", t_total * cams)
+    count("frames_pad", (-(-t_total // chunk) * chunk - t_total) * cams)
+
+
+def count_detections(dets: Detections, real: Optional[int], birth_gate: float) -> None:
+    """Valid detections of a chunk's first ``real`` rows (None: all), and
+    those of them scored at or above the tracker's ``birth_gate``, summed on
+    the device."""
+    if tracing():
+        valid = dets.valid[:real]
+        count("det_valid", valid.sum())
+        count("det_birth", (valid & (dets.scores[:real] >= birth_gate)).sum())
+
+
+def count_tracks(outputs) -> None:
+    """Valid track slots of host outputs cut to the real frames."""
+    if tracing():
+        count("track_live", int(outputs.valid.sum()))
 
 
 def concat_host(chunks: List, t_total: int):
@@ -215,25 +251,35 @@ class SegmentPipeline:
         h, w = src_hw
         return letterbox_batch(frames, (-(-h // sd), -(-w // sd)), self.cfg.detector.image_size)
 
-    def _detect_chunk(self, frames: torch.Tensor, src_hw) -> Tuple[Detections, torch.Tensor]:
+    def _detect_chunk(self, frames: torch.Tensor, src_hw,
+                      real: Optional[int] = None) -> Tuple[Detections, torch.Tensor]:
         """Device (chunk, H, W, 3) uint8 frames -> (detections, letterbox
         scale): downscaled by ``decode_scale_denom`` on the device where they
         are larger than ``src_hw`` (the size after that downscale), the int8
-        calibration hook, letterbox, detect."""
-        if tuple(frames.shape[1:3]) != tuple(src_hw):
-            frames = area_downscale(frames, self.cfg.pipeline.decode_scale_denom)
-        self.ensure_calibrated(frames, src_hw)
-        images, scale = letterbox_batch(frames, src_hw, self.cfg.detector.image_size)
-        return dispatch_detect(self.detector, self.cfg, images), scale
+        calibration hook, letterbox, detect. ``real``: the chunk's real
+        frames (the rest repeat the last), for the counters; None: all."""
+        with span("staging"):
+            if tuple(frames.shape[1:3]) != tuple(src_hw):
+                frames = area_downscale(frames, self.cfg.pipeline.decode_scale_denom)
+            self.ensure_calibrated(frames, src_hw)
+            images, scale = letterbox_batch(frames, src_hw, self.cfg.detector.image_size)
+        with span("detect"):
+            dets = dispatch_detect(self.detector, self.cfg, images)
+        count_detections(dets, real, self.cfg.tracker.birth_score_threshold)
+        return dets, scale
 
-    def chunk_step(self, state: TrackerState, frames: torch.Tensor, src_hw):
+    def chunk_step(self, state: TrackerState, frames: torch.Tensor, src_hw,
+                   real: Optional[int] = None):
         """One chunk of the segment path (the JAX package's ``_chunk_step``):
         (state, device (chunk, H, W, 3) uint8 frames, ``src_hw``) -> (state',
         outputs on the device (chunk, S, ...), letterbox scale). The tracker
         steps through the chunk's frames, on the card by the captured step
-        (``tracker/graph.py``) this pipeline keeps."""
-        dets, scale = self._detect_chunk(frames, src_hw)
-        state, outputs = track_chunk(state, dets, self.cfg.tracker, self._graphs)
+        (``tracker/graph.py``) this pipeline keeps. ``real`` as in
+        ``_detect_chunk``."""
+        with span("chunk"):
+            dets, scale = self._detect_chunk(frames, src_hw, real)
+            with span("track"):
+                state, outputs = track_chunk(state, dets, self.cfg.tracker, self._graphs)
         return state, outputs, scale
 
     def run_segment(
@@ -241,12 +287,17 @@ class SegmentPipeline:
     ) -> Tuple[List[subm.TrackRecord], dict]:
         """Full detect -> track over one camera's segment. Returns (records,
         stats); the final track table is kept in ``last_state`` (numpy)."""
+        with span("segment"):
+            return self._run_segment(segment, detections_only)
+
+    def _run_segment(self, segment: SegmentFrames, detections_only: bool):
         cfg = self.cfg
         chunk = cfg.pipeline.chunk_frames
         sd = cfg.pipeline.decode_scale_denom
         t_total = segment.num_frames
         src_hw = segment.scaled_hw(sd)
         on_card = self.device.type == "cuda"
+        count_frames(t_total, chunk)
 
         state = init_state(cfg.tracker, device=self.device)
         self.last_state = None
@@ -259,31 +310,35 @@ class SegmentPipeline:
         blocks = segment.chunk_iter(chunk, scale_denom=1 if card_downscale else sd)
         with DevicePrefetcher(blocks, depth=cfg.pipeline.prefetch_depth,
                               device=self.device) as prefetcher:
-            for frames in prefetcher:
+            for i, frames in enumerate(prefetcher):
+                real = min(chunk, t_total - i * chunk)
                 if detections_only:
-                    dets, scale = self._detect_chunk(frames, src_hw)
+                    dets, scale = self._detect_chunk(frames, src_hw, real)
                     fetcher.push(dets)
                 else:
-                    state, outputs, scale = self.chunk_step(state, frames, src_hw)
+                    state, outputs, scale = self.chunk_step(state, frames, src_hw, real)
                     fetcher.push(outputs)
         outputs_host = fetcher.finish()
         if not detections_only:
-            self.last_state = state.to_numpy()
+            with span("fetch"):
+                self.last_state = state.to_numpy()
         wall = time.perf_counter() - t0
 
-        stacked = concat_host(outputs_host, t_total)
-        total_scale = float(scale) / sd
-        if detections_only:
-            records = subm.records_from_detections(
-                stacked, segment.context_name, segment.timestamps,
-                segment.camera_name, scale=total_scale,
-            )
-        else:
-            records = subm.records_from_track_outputs(
-                stacked, segment.context_name, segment.timestamps,
-                segment.camera_name, scale=total_scale,
-                interp_max_gap=cfg.pipeline.interp_max_gap,
-            )
+        with span("records"):
+            stacked = concat_host(outputs_host, t_total)
+            total_scale = float(scale) / sd
+            if detections_only:
+                records = subm.records_from_detections(
+                    stacked, segment.context_name, segment.timestamps,
+                    segment.camera_name, scale=total_scale,
+                )
+            else:
+                count_tracks(stacked)
+                records = subm.records_from_track_outputs(
+                    stacked, segment.context_name, segment.timestamps,
+                    segment.camera_name, scale=total_scale,
+                    interp_max_gap=cfg.pipeline.interp_max_gap,
+                )
         stats = {
             "context": segment.context_name,
             "camera": segment.camera_name,
@@ -326,11 +381,12 @@ def run_segments(
         if fail_after is not None and n_run >= fail_after:
             raise RuntimeError(f"fault injection: stopping after {fail_after} segments")
         records, stats = pipeline.run_segment(seg)
-        seg_file = os.path.join(out_dir, f"{seg.context_name}_{seg.camera_name}.jsonl")
-        subm.write_jsonl(seg_file, records)
-        if pipeline.last_state is not None:
-            write_gallery_sidecar(seg_file, pipeline.last_state)
-        append_manifest(out_dir, [stats])
+        with span("records"):
+            seg_file = os.path.join(out_dir, f"{seg.context_name}_{seg.camera_name}.jsonl")
+            subm.write_jsonl(seg_file, records)
+            if pipeline.last_state is not None:
+                write_gallery_sidecar(seg_file, pipeline.last_state)
+            append_manifest(out_dir, [stats])
         all_stats.append(stats)
         n_run += 1
     return all_stats

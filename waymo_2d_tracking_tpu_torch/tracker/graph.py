@@ -18,7 +18,9 @@ plumbing the graph replays.
 calls), then one step captured with ``torch.cuda.graph``. A replay adds to
 the kernels' launch counters what the capture saw, with ``last_shape``, as
 the eager launches would have. A capture or replay failure raises; nothing
-carries on eagerly.
+carries on eagerly. Under a profiler each capture adds 1 to the counter
+``graph_captures`` (``utils/profiling.py``), so that a graph rebuilt inside
+a traced stretch shows.
 
 ``track_chunk`` is ``track_segment``'s contract for the drivers: a CUDA
 state replays the driver's cached graph for its (config, shapes, dtypes,
@@ -40,6 +42,7 @@ from waymo_2d_tracking_tpu_torch.ops.roi_align import roi_align_cuda
 from waymo_2d_tracking_tpu_torch.ops.topk import topk_threshold_cuda
 from waymo_2d_tracking_tpu_torch.tracker.tracker import track_segment, track_step
 from waymo_2d_tracking_tpu_torch.types import Detections, TrackerState, TrackOutputs
+from waymo_2d_tracking_tpu_torch.utils.profiling import count
 
 # the kernel wrappers whose launch counts a replay carries on
 COUNTED = (nms_mask_cuda, auction_kernel_cuda, topk_threshold_cuda, roi_align_cuda)
@@ -139,6 +142,7 @@ class CapturedTracker(StaticTrackerStep):
     def __init__(self, cfg: TrackerConfig, state: TrackerState, det: Detections):
         if state.mean.device.type != "cuda" or det.boxes.device != state.mean.device:
             raise ValueError("CapturedTracker takes a state and detections on one CUDA device")
+        count("graph_captures", 1)
         super().__init__(cfg, state, det)
         side = torch.cuda.Stream(device=state.mean.device)
         side.wait_stream(torch.cuda.current_stream(state.mean.device))
