@@ -40,7 +40,7 @@ UNIT = {"segments": "segment", "group": "group", "online": "tick"}
 NESTING = {
     "segments": {"chunk": "segment", "prefetch_wait": "segment", "fetch": "segment",
                  "staging": "chunk", "detect": "chunk", "track": "chunk"},
-    "group": {"chunk": "group", "stack": "group", "fetch": "group",
+    "group": {"chunk": "group", "prefetch_wait": "group", "fetch": "group",
               "staging": "chunk", "detect": "chunk", "track": "chunk"},
     "online": {"stack": "tick", "staging": "tick", "detect": "tick", "track": "tick",
                "fetch": "tick"},
@@ -161,8 +161,14 @@ def test_counters_are_exact(tmp_path, monkeypatch, driver):
     # the tiny preset births from every score: all valid detections count
     assert CFG.tracker.birth_score_threshold == 0.0 and got["det_birth"] == det_valid
     assert got["track_live"] == live and live > 0
-    assert ("prefetch_fill_s" in got) == (driver == "segments")
+    # the offline drivers are fed by the prefetcher, a chunk at a time
+    prefetched = driver != "online"
+    for name in ("prefetch_fill_s", "prefetch_chunks", "prefetch_ready"):
+        assert (name in got) == prefetched, name
     assert got.get("prefetch_fill_s", 1.0) > 0
+    assert got.get("prefetch_chunks", -(-FRAMES // CHUNK)) == -(-FRAMES // CHUNK)
+    assert 0 <= got.get("prefetch_ready", 0) <= got.get("prefetch_chunks", 0)
+    assert all(isinstance(got.get(n, 0), int) for n in ("prefetch_chunks", "prefetch_ready"))
     assert "graph_captures" not in got       # no CUDA graph on the CPU
 
 

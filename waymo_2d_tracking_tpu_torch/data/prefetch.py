@@ -20,17 +20,25 @@ On a CUDA device the copy is asynchronous and overlaps the compute stream:
 On the CPU the same class yields plain tensors, with no pinning and no
 stream.
 
-Tracing (``utils/profiling.py``): the consumer's blocked wait for the next
-chunk is the span ``w2t/prefetch_wait``. The worker times each chunk's
-source, transform and copy and queues the seconds with the chunk; the
-consumer adds them to the counter ``prefetch_fill_s`` (the worker's thread
-reads no profiler).
+Chunks are numpy arrays; dicts of them (training batches), which arrive as
+dicts of tensors; or a rig's chunk, a list or tuple of equal-shape
+(chunk, H, W, 3) arrays, one a camera, which arrives as one
+(chunk, cams, H, W, 3) tensor: the worker gathers each camera's block
+straight into its place in the pinned buffer (on the CPU, into a fresh
+tensor), with no stacked host array in between.
+
+Tracing (``utils/profiling.py``): the consumer's wait for the next chunk is
+the span ``w2t/prefetch_wait``; the counters ``prefetch_chunks`` (chunks
+taken) and ``prefetch_ready`` (of them, those already queued when the
+consumer asked) say how often the worker kept ahead. The worker times each
+chunk's source, transform and copy and queues the seconds with the chunk;
+the consumer adds them to the counter ``prefetch_fill_s`` (the worker's
+thread reads no profiler).
 
 Lifecycle: ``close()`` (or leaving the ``with`` block) unblocks and joins the
 worker, which closes the source iterator in its own thread (running the
 source generator's ``finally``). An exception in the worker or the source is
-raised on the consumer's side. Chunks are numpy arrays, or dicts of them
-(training batches), which arrive as dicts of tensors.
+raised on the consumer's side.
 """
 from __future__ import annotations
 
@@ -51,8 +59,8 @@ _SENTINEL = object()
 class DevicePrefetcher:
     """Iterate host chunks; yield them on ``device``, copied ahead.
 
-    produce: iterable of numpy arrays (e.g. repeat-padded uint8 frame chunks)
-      or of dicts of numpy arrays.
+    produce: iterable of numpy arrays (e.g. repeat-padded uint8 frame chunks),
+      of dicts of numpy arrays, or of lists of per-camera arrays (a rig).
     depth: chunks staged ahead (2 = double buffering).
     transform: optional host-side function applied in the worker thread
       before the copy.
@@ -81,6 +89,8 @@ class DevicePrefetcher:
     def _to_device(self, item):
         """A numpy array, or a dict of them (a training batch), on the
         device; on the card (tensors, event behind their copies)."""
+        if isinstance(item, (list, tuple)):
+            return self._gather_to_device(item)
         arrays = item if isinstance(item, dict) else {None: item}
         host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()}
         if not self._cuda:
@@ -102,6 +112,42 @@ class DevicePrefetcher:
             ready.record(self._stream)
         slot[0], slot[1] = bufs, ready
         return (dev if isinstance(item, dict) else dev[None]), ready
+
+    def _gather_to_device(self, blocks):
+        """A rig's chunk, equal-shape (chunk, H, W, 3) arrays one a camera,
+        as one (chunk, cams, H, W, 3) tensor: each camera's block is copied
+        straight into ``buf[:, i]`` of a pinned ring slot, then the slot
+        crosses in one copy; on the CPU ``buf`` is a fresh tensor."""
+        hws = {b.shape[1:3] for b in blocks}
+        assert len(hws) == 1, (
+            "multicam shared-backbone batch needs equal-resolution "
+            f"cameras, got {sorted(hws)}; run mixed-resolution cameras "
+            "as separate single-camera segments instead"
+        )
+        host = [torch.from_numpy(b) for b in blocks]
+        shape = (host[0].shape[0], len(host)) + tuple(host[0].shape[1:])
+        dtype = host[0].dtype
+        if self._cuda:
+            slot = self._ring[self._slot]
+            self._slot = (self._slot + 1) % len(self._ring)
+            bufs, done = slot
+            if done is not None:
+                done.synchronize()      # its last copy has left the buffer
+            buf = (bufs or {}).get(None)
+            if buf is None or buf.shape != shape or buf.dtype != dtype:
+                buf = torch.empty(shape, dtype=dtype, pin_memory=True)
+        else:
+            buf = torch.empty(shape, dtype=dtype)
+        for i, h in enumerate(host):
+            buf[:, i].copy_(h)
+        if not self._cuda:
+            return buf
+        with torch.cuda.stream(self._stream):
+            dev = buf.to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._stream)
+        slot[0], slot[1] = {None: buf}, ready
+        return dev, ready
 
     def _worker(self, it: Iterator):
         try:
@@ -162,7 +208,10 @@ class DevicePrefetcher:
     def __iter__(self):
         while True:
             with span("prefetch_wait"):
-                item = self._queue.get()
+                try:
+                    item, queued = self._queue.get_nowait(), 1
+                except queue.Empty:
+                    item, queued = self._queue.get(), 0
             if item is _SENTINEL:
                 if self._error is not None:
                     raise self._error
@@ -170,6 +219,8 @@ class DevicePrefetcher:
                 return
             item, fill_s = item
             count("prefetch_fill_s", fill_s)
+            count("prefetch_chunks", 1)
+            count("prefetch_ready", queued)
             if self._cuda:
                 item, ready = item
                 stream = torch.cuda.current_stream(self.device)

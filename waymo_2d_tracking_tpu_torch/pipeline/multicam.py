@@ -18,17 +18,23 @@ to the host through ``RollingFetch``.
 On the card the tracker steps replay a captured CUDA graph per frame
 (``tracker/graph.py``), one per (config, camera count, shapes). Under
 ``decode_scale_denom > 1`` the chunk is downscaled (``area_downscale``)
-where it is letterboxed: on the card after the copy, at source size. As in
-the JAX package, no prefetch thread feeds this driver. Cameras given as JPEG
-bytes are decoded on the host at the scaled size. Under
+where it is letterboxed: on the card after the copy, at source size. Cameras
+given as JPEG bytes are decoded on the host at the scaled size. Under
 ``detector.quant='int8'`` the first real chunk's shared batch calibrates the
 activation scales.
 
+``run_segments_group`` is fed by ``data/prefetch.py DevicePrefetcher``, as
+``pipeline/run.py run_segment`` is (the JAX package's driver stacks the
+cameras on the driving thread instead): its worker thread takes each
+camera's next chunk, gathers the cameras straight into a pinned buffer of
+(chunk, cams, H, W, 3) and copies it to the card on a side stream while the
+card computes the chunk before.
+
 Under a profiler (``utils/profiling.py``) a group is the span ``w2t/group``,
-holding ``w2t/stack`` (the host taking each camera's next chunk and
-stacking them), ``w2t/chunk`` per chunk (``w2t/staging``, ``w2t/detect``,
+holding ``w2t/prefetch_wait`` (the driving thread waiting for the worker's
+next chunk), ``w2t/chunk`` per chunk (``w2t/staging``, ``w2t/detect``,
 ``w2t/track``), ``w2t/fetch`` and ``w2t/records``, with the counters of
-``pipeline/run.py``.
+``pipeline/run.py`` and the prefetcher's.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ import numpy as np
 import torch
 
 from waymo_2d_tracking_tpu_torch.config import Config
+from waymo_2d_tracking_tpu_torch.data.prefetch import DevicePrefetcher
 from waymo_2d_tracking_tpu_torch.data.preprocess import area_downscale, letterbox_batch
 from waymo_2d_tracking_tpu_torch.io_out import submission as subm
 from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
@@ -67,6 +74,17 @@ def split_cameras(dets: Detections, t: int, c: int) -> Detections:
         f.name: getattr(dets, f.name).reshape((t, c) + getattr(dets, f.name).shape[1:])
         for f in dataclasses.fields(Detections)
     })
+
+
+def _rig_chunks(iters):
+    """The cameras' chunk iterators zipped: one list of per-camera
+    (chunk, H, W, 3) blocks a chunk. Its ``finally`` closes every camera's
+    iterator (a JPEG source's decoder), in the thread that iterates it."""
+    try:
+        yield from map(list, zip(*iters))
+    finally:
+        for it in iters:
+            it.close()
 
 
 class MultiCamPipeline:
@@ -153,23 +171,12 @@ class MultiCamPipeline:
         fetcher = RollingFetch(depth=cfg.pipeline.prefetch_depth)
         src_hw = segments[0].scaled_hw(sd)
         scale = 1.0
-        try:
-            for start in range(0, t_total, chunk):
-                with span("stack"):
-                    blocks = [next(it) for it in iters]
-                    hws = {b.shape[1:3] for b in blocks}
-                    assert len(hws) == 1, (
-                        "multicam shared-backbone batch needs equal-resolution "
-                        f"cameras, got {sorted(hws)}; run mixed-resolution cameras "
-                        "as separate single-camera segments instead"
-                    )
-                    frames = np.stack(blocks, axis=1)   # (chunk, cams, H, W, 3)
+        with DevicePrefetcher(_rig_chunks(iters), depth=cfg.pipeline.prefetch_depth,
+                              device=self.device) as prefetcher:
+            for i, frames in enumerate(prefetcher):    # (chunk, cams, H, W, 3)
                 states, outputs, scale = self.chunk_step(states, frames, src_hw,
-                                                         min(chunk, t_total - start))
+                                                         min(chunk, t_total - i * chunk))
                 fetcher.push(outputs)
-        finally:
-            for it in iters:      # closes a JPEG source's decoder
-                it.close()
         outputs_host = fetcher.finish()
         with span("fetch"):
             final_states = states.to_numpy()
