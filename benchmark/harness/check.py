@@ -1,6 +1,8 @@
 """The comparison that decides ``correct``.
 
-The reference (``benchmark/reference``) follows the program stage by stage:
+The configuration's reference (the package its file names under
+``reference``, handed in as ``ref``: ``spec.py``) follows the program stage
+by stage:
 
 - ``forward_gap``: the staging and the detector's forward. The reference
   downscales and letterboxes the raw frames of each sampled chunk itself
@@ -39,12 +41,6 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from benchmark.reference import model as ref_model
-from benchmark.reference import postprocess as ref_post
-from benchmark.reference import preprocess as ref_pre
-from benchmark.reference import records as ref_records
-from benchmark.reference import tracker as ref_tracker
-
 DET_FIELDS = ("boxes", "scores", "classes", "embeds", "valid")
 
 
@@ -70,7 +66,7 @@ class TrackUnit:
     contexts: List[str]            # per camera
     cameras: List[int]
     timestamps: List[int]
-    rows: list                     # program records, as reference/records.py tuples
+    rows: list                     # program records, as the reference's records.py tuples
     sidecar: Optional[List[dict]]  # per camera {track_id, status, embed} or None
     scale: float                   # network pixels per source pixel
     frames: Optional[Callable[[int], torch.Tensor]] = None   # batch i's raw frames (control)
@@ -107,15 +103,15 @@ def net_scale(cfg: dict, source_hw, sd: int) -> float:
 
 
 @torch.no_grad()
-def reference_forward(model, cfg: dict, frames: torch.Tensor, device, denom: int,
+def reference_forward(ref, model, cfg: dict, frames: torch.Tensor, device, denom: int,
                       block: int = 8):
     """Raw uint8 frames -> (head outputs {lvl: (cls, ltrb, ctr)}, P3 NHWC),
     float32, in blocks of images."""
     heads, p3 = [], []
     lvl0 = min(cfg["detector"]["fpn_levels"])
     for i in range(0, frames.shape[0], block):
-        x = ref_pre.area_downscale(frames[i:i + block].to(device), denom)
-        images, _ = ref_pre.letterbox(x, cfg["detector"]["image_size"])
+        x = ref.preprocess.area_downscale(frames[i:i + block].to(device), denom)
+        images, _ = ref.preprocess.letterbox(x, cfg["detector"]["image_size"])
         h, f = model(images)
         heads.append({lvl: tuple(t.float() for t in v) for lvl, v in h.items()})
         p3.append(f[lvl0].float())
@@ -125,11 +121,13 @@ def reference_forward(model, cfg: dict, frames: torch.Tensor, device, denom: int
 
 
 @torch.no_grad()
-def reference_embeds(model, cfg: dict, p3: torch.Tensor, boxes: torch.Tensor, block: int = 4):
+def reference_embeds(ref, model, cfg: dict, p3: torch.Tensor, boxes: torch.Tensor,
+                     block: int = 4):
     lvl0 = min(cfg["detector"]["fpn_levels"])
     out = []
     for i in range(0, p3.shape[0], block):
-        pooled = ref_post.roi_align(p3[i:i + block], boxes[i:i + block].float(), 1.0 / 2 ** lvl0)
+        pooled = ref.postprocess.roi_align(p3[i:i + block], boxes[i:i + block].float(),
+                                           1.0 / 2 ** lvl0)
         n, d = pooled.shape[:2]
         out.append(model.embed(pooled.reshape((n * d,) + pooled.shape[2:])).reshape(n, d, -1))
     return torch.cat(out)
@@ -165,17 +163,17 @@ def _frames_in(batch: dict, cams: Optional[int]) -> int:
 
 
 @torch.no_grad()
-def run_tracker(cfg: dict, unit: TrackUnit, device, tf32: bool = False):
+def run_tracker(ref, cfg: dict, unit: TrackUnit, device, tf32: bool = False):
     """The reference tracker over the unit's detections -> (records, final
     state)."""
     t = cfg["tracker"]
-    st = ref_tracker.init_state(t, unit.cams, device)
+    st = ref.tracker.init_state(t, unit.cams, device)
     outs = []
     solve = None if unit.cams is None else _cams(unit)
     with precision(tf32):
         for batch in unit.dets:
             for i in range(_frames_in(batch, unit.cams)):
-                st, out = ref_tracker.step(st, _frame_dets(batch, i, unit.cams), t, solve)
+                st, out = ref.tracker.step(st, _frame_dets(batch, i, unit.cams), t, solve)
                 outs.append({k: v.cpu().numpy() for k, v in out.items()})
     outs = outs[:unit.t_real]
     stacked = {k: np.stack([o[k] for o in outs]) for k in outs[0]} if outs else None
@@ -184,7 +182,7 @@ def run_tracker(cfg: dict, unit: TrackUnit, device, tf32: bool = False):
         if stacked is None or (unit.cams is not None and ci not in _cams(unit)):
             continue
         sel = stacked if unit.cams is None else {k: v[:, ci] for k, v in stacked.items()}
-        rows += ref_records.rows(sel, unit.contexts[ci], unit.timestamps, cam, unit.scale)
+        rows += ref.records.rows(sel, unit.contexts[ci], unit.timestamps, cam, unit.scale)
     return rows, {k: v.cpu().numpy() for k, v in st.items()}
 
 
@@ -215,7 +213,7 @@ def _sidecar_mismatch(cfg: dict, unit: TrackUnit, state: dict) -> int:
     return bad
 
 
-def compare(model, cfg: dict, samples: List[Sample], tracks: List[TrackUnit], device):
+def compare(ref, model, cfg: dict, samples: List[Sample], tracks: List[TrackUnit], device):
     """The four numbers for the program's (or the control's) artifacts, and
     how much they covered (images, valid detections, program records)."""
     fwd_gap = emb_gap = 0.0
@@ -230,18 +228,18 @@ def compare(model, cfg: dict, samples: List[Sample], tracks: List[TrackUnit], de
         for s in samples:
             if s.head is None or s.dets is None:
                 continue
-            head, p3 = reference_forward(model, cfg, s.frames(), device, s.denom)
+            head, p3 = reference_forward(ref, model, cfg, s.frames(), device, s.denom)
             gap, kind, image = _per_image_rel(s.head, head)
             if gap > fwd_gap:
                 fwd_gap, seen_worst = gap, f"{kind} of image {image} of batch {s.key}"
             if det["embed_dim"] > 0:
-                e_ref = reference_embeds(model, cfg, p3, s.dets["boxes"])
+                e_ref = reference_embeds(ref, model, cfg, p3, s.dets["boxes"])
                 gap = torch.linalg.vector_norm(s.dets["embeds"].float() - e_ref, dim=-1)
                 gap = torch.where(s.dets["valid"], gap, 0.0)
                 emb_gap = max(emb_gap, float(gap.max()) if gap.numel() else 0.0)
             del head, p3
-            cand = ref_post.candidates(s.head, det)
-            boxes, scores, classes, valid = ref_post.select(*cand, det)
+            cand = ref.postprocess.candidates(s.head, det)
+            boxes, scores, classes, valid = ref.postprocess.select(*cand, det)
             diff = ((s.dets["boxes"] != boxes).any(-1) | (s.dets["scores"] != scores)
                     | (s.dets["classes"] != classes) | (s.dets["valid"] != valid))
             sel_bad += int(diff.sum())
@@ -256,7 +254,7 @@ def compare(model, cfg: dict, samples: List[Sample], tracks: List[TrackUnit], de
         if not u.dets or any(b is None for b in u.dets):    # a unit that never ran
             trk_bad = math.inf
             continue
-        rows, state = run_tracker(cfg, u, device)
+        rows, state = run_tracker(ref, cfg, u, device)
         prog = _program_rows(u)
         trk_bad += sum(((Counter(rows) - Counter(prog)) + (Counter(prog) - Counter(rows))).values())
         trk_bad += _sidecar_mismatch(cfg, u, state)
@@ -267,26 +265,27 @@ def compare(model, cfg: dict, samples: List[Sample], tracks: List[TrackUnit], de
 
 
 @torch.no_grad()
-def control_artifacts(model, cfg: dict, samples: List[Sample], tracks: List[TrackUnit], device):
+def control_artifacts(ref, model, cfg: dict, samples: List[Sample], tracks: List[TrackUnit],
+                      device):
     """Fill the samples and units with what the reference one precision step
     lower produces in the program's place (see the module docstring)."""
     det = cfg["detector"]
 
     def detect(frames, denom):
-        ref_model.set_fake_quant("fp8")
+        ref.model.set_fake_quant("fp8")
         try:
-            head, p3 = reference_forward(model, cfg, frames, device, denom)
+            head, p3 = reference_forward(ref, model, cfg, frames, device, denom)
             head16 = {lvl: tuple(t.to(torch.bfloat16) if j != 1 else t for j, t in enumerate(v))
                       for lvl, v in head.items()}
-            boxes, scores, classes, valid = ref_post.select(
-                *ref_post.candidates(head16, det, dtype=torch.bfloat16), det)
+            boxes, scores, classes, valid = ref.postprocess.select(
+                *ref.postprocess.candidates(head16, det, dtype=torch.bfloat16), det)
             boxes, scores = boxes.float(), scores.float()
             if det["embed_dim"] > 0:
-                embeds = reference_embeds(model, cfg, p3, boxes) * valid[..., None]
+                embeds = reference_embeds(ref, model, cfg, p3, boxes) * valid[..., None]
             else:
                 embeds = torch.zeros(boxes.shape[:2] + (1,), device=boxes.device)
         finally:
-            ref_model.set_fake_quant(None)
+            ref.model.set_fake_quant(None)
         return head16, {"boxes": boxes, "scores": scores, "classes": classes.to(torch.int32),
                         "embeds": embeds.float(), "valid": valid}
 
@@ -296,7 +295,7 @@ def control_artifacts(model, cfg: dict, samples: List[Sample], tracks: List[Trac
         for u in tracks:
             u.dets = [detect(u.frames(i), u.denom)[1] for i in range(len(u.dets))]
     for u in tracks:
-        u.rows, state = run_tracker(cfg, u, device, tf32=True)
+        u.rows, state = run_tracker(ref, cfg, u, device, tf32=True)
         if u.sidecar is not None:
             u.sidecar = [{k: (state[k] if u.cams is None else state[k][ci])
                           for k in ("track_id", "status", "embed")}

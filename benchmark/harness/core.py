@@ -26,7 +26,6 @@ import torch
 from benchmark.harness import check, frames, peaks, spec as spec_mod, weights
 from benchmark.harness.probe import Probe
 from benchmark.harness.trace import Trace, export_events
-from benchmark.reference import model as ref_model
 
 BANNED = ("jax", "jaxlib", "flax", "waymo_2d_tracking_tpu")
 
@@ -67,22 +66,22 @@ def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
-def flops_per_image(cfg: dict) -> float:
-    """FLOPs of the reference detector for one letterboxed image and its
-    max_detections ReID crops, counted on the meta device."""
+def flops_per_image(ref, cfg: dict) -> float:
+    """FLOPs of the configuration's reference detector (``ref``, the cell's
+    ``reference``) for one letterboxed image and its max_detections ReID
+    crops, counted on the meta device."""
     from torch.utils.flop_counter import FlopCounterMode
 
-    from benchmark.reference import postprocess as ref_post
     det = cfg["detector"]
     with torch.device("meta"):
-        model = ref_model.Detector(det).eval()
+        model = ref.model.Detector(det).eval()
         images = torch.empty((1,) + tuple(det["image_size"]) + (3,))
     with FlopCounterMode(display=False) as counter, torch.no_grad():
         _, feats = model(images)
         if det["embed_dim"] > 0:
             lvl0 = min(det["fpn_levels"])
             boxes = torch.empty((1, det["max_detections"], 4), device="meta")
-            pooled = ref_post.roi_align(feats[lvl0], boxes, 1.0 / 2 ** lvl0)
+            pooled = ref.postprocess.roi_align(feats[lvl0], boxes, 1.0 / 2 ** lvl0)
             model.embed(pooled.reshape((-1,) + pooled.shape[2:]))
     return float(counter.get_total_flops())
 
@@ -93,7 +92,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device: str = "cuda"
     runner's context after set-up, to break the timed path underneath."""
     t_start = process_start_wall()
     dev = torch.device(device)
-    cfg = cell["config"]["config"]
+    cfg, ref = cell["config"]["config"], cell["reference"]
     traffic, cellf = cell["traffic"], cell["cell"]
     ctx = types.SimpleNamespace(
         spec=cell, cfg=cfg, traffic=traffic, cellf=cellf, seed=int(seed), seconds=seconds,
@@ -101,7 +100,7 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device: str = "cuda"
         cams=len(cfg["pipeline"]["cameras"]), hw=tuple(traffic["source_hw"]))
     drv = spec_mod.runner(cell)
 
-    model = weights.make(cfg, ctx.spec["config"]["weights"], dev)
+    model = weights.make(ref, cfg, ctx.spec["config"]["weights"], dev)
     # the program gets host copies of the weights (it builds its module on the
     # host and moves it); the reference's stay off the card until the check
     model.to("cpu")
@@ -145,9 +144,10 @@ def run(cell: dict, seed: int, seconds: float, trace: bool, device: str = "cuda"
             torch.cuda.empty_cache()
         model.to(dev)
         if control:
-            check.control_artifacts(model, cfg, samples, tracks, dev)
+            check.control_artifacts(ref, model, cfg, samples, tracks, dev)
         t_check = time.time()
-        result["numbers"], result["seen"] = check.compare(model, cfg, samples, tracks, dev)
+        result["numbers"], result["seen"] = check.compare(ref, model, cfg, samples, tracks, dev)
+        result["seen"].update(getattr(ctx, "seen", {}))     # what the runner saw besides
         result["check_s"] = time.time() - t_check
         result["ctx"] = ctx
         return result
@@ -197,7 +197,7 @@ def result_line(cell: dict, res: dict) -> dict:
         tr = Trace(info.pop("events"))
         attempted, failed = info["attempted"], info["failed"]
         view = types.SimpleNamespace(trace=tr, cfg=ctx.cfg, info=info, peaks=peaks,
-                                     flops_per_image=flops_per_image(ctx.cfg))
+                                     flops_per_image=flops_per_image(cell["reference"], ctx.cfg))
         for m in cell["per_layer"]:
             v = spec_mod.reader(cell, m["name"]).read(view)
             if v is not None:

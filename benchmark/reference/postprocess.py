@@ -113,7 +113,12 @@ def roi_align(features: torch.Tensor, boxes: torch.Tensor, scale: float, p: int 
     n, h, w, c = features.shape
     r = boxes.shape[1]
     f = boxes.reshape(-1, 4).float() * scale - 0.5
-    wy = _weights(f[:, 1], (f[:, 3] - f[:, 1]) / p, p, s, h).reshape(n, r, p, h)
-    wx = _weights(f[:, 0], (f[:, 2] - f[:, 0]) / p, p, s, w).reshape(n, r, p, w)
+    # the bin size divided by a tensor: on the card a division by a Python
+    # number is a multiplication by its reciprocal, an ulp off the quotient,
+    # and a sample that lands on -1 then falls on the other side of the
+    # boundary (a whole row's weight)
+    bins = torch.full_like(f[:, 0], float(p))
+    wy = _weights(f[:, 1], (f[:, 3] - f[:, 1]) / bins, p, s, h).reshape(n, r, p, h)
+    wx = _weights(f[:, 0], (f[:, 2] - f[:, 0]) / bins, p, s, w).reshape(n, r, p, w)
     rows = torch.einsum("nkph,nhwc->nkpwc", wy, features.float())
     return torch.einsum("nkqw,nkpwc->nkpqc", wx, rows)

@@ -15,7 +15,7 @@ SEED = 2 ** 31 + 977
 
 
 def _run(cell, control=False, fault=None):
-    res = core.run(cell, SEED, 0.3, False, "cpu", control=control, fault=fault)
+    res = core.run(cell, SEED, 1.0, False, "cpu", control=control, fault=fault)
     return core.result_line(cell, res)
 
 
@@ -27,7 +27,7 @@ def test_sound_run_is_correct(tiny_cell, name):
     assert list(out)[-1] == "checks"
 
 
-@pytest.mark.parametrize("name", ["tiny.segments", "tiny_rig.live"])
+@pytest.mark.parametrize("name", ["tiny.segments", "tiny_rig.live", "tiny.jpeg_segments"])
 def test_control_is_not_correct(tiny_cell, name):
     out = _run(tiny_cell(name), control=True)
     assert not out["correct"]
@@ -101,6 +101,36 @@ def test_reference_auction_is_the_cards_schedule():
         want = auction_kernel_reference(ben[None], eps0.reshape(1), valid.any().reshape(1),
                                         eps_scale=0.2, eps_min=1e-2, max_iters=4096)[0][0]
         assert np.array_equal(got, want.numpy())
+
+
+def _roi_align_pair(device):
+    """The reference's and the program's RoIAlign of P3-sized features at
+    boxes one of whose sample rows lands on -1 and one of whose sample
+    columns on the map's far edge: the boundaries where a sample's weight
+    drops to 0."""
+    from benchmark.reference import postprocess
+    from waymo_2d_tracking_tpu_torch.ops.roi_align import roi_align_batched
+    gen = torch.Generator().manual_seed(11)
+    h, w, n = 56, 84, 2048
+    feats = torch.randn((1, h, w, 32), generator=gen)
+    by, bx = 2 + 8 * torch.rand(n, generator=gen), 2 + 8 * torch.rand(n, generator=gen)
+    y1, x1 = -1 - 3.75 * by, w - 3.25 * bx
+    f = torch.stack([x1, y1, x1 + 7 * bx, y1 + 7 * by], -1)
+    boxes = ((f + 0.5) * 8)[None]
+    feats, boxes = feats.to(device), boxes.to(device)
+    return (postprocess.roi_align(feats, boxes, 1 / 8),
+            roi_align_batched(feats, boxes, spatial_scale=1 / 8).float())
+
+
+def test_reference_roi_align_is_the_programs():
+    ref, prog = _roi_align_pair("cpu")
+    torch.testing.assert_close(ref, prog, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.card
+def test_reference_roi_align_is_the_programs_on_the_card(card):
+    ref, prog = _roi_align_pair(card)
+    torch.testing.assert_close(ref, prog, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.card

@@ -153,21 +153,22 @@ def test_frame_generator_is_seeded():
 
 
 def _weights_case(bench: dict, base: str, config: str):
-    """A configuration's file and the traffic mix of its first cell."""
+    """A configuration's file, its reference and the traffic mix of its
+    first cell."""
     entry = next(c for c in bench["configs"] if c["name"] == config)
     traffic = next(w["traffic"] for w in bench["workloads"] if w["config"] == config)
     with open(os.path.join(spec.ROOT, entry["file"])) as f:
         conf = json.load(f)
     with open(os.path.join(base, "traffic", f"{traffic}.json")) as f:
-        return conf, json.load(f)
+        return conf, spec.reference(conf, entry["file"]), json.load(f)
 
 
-def _check_stored_shift(conf: dict, traffic: dict, device):
+def _check_stored_shift(conf: dict, ref, traffic: dict, device):
     from benchmark.harness import weights
-    got = weights.calibrate(conf["config"], conf["weights"], traffic, device)
+    got = weights.calibrate(ref, conf["config"], conf["weights"], traffic, device)
     assert got == conf["weights"]["class_bias_shift"]
-    model = weights.make(conf["config"], conf["weights"], device)
-    fresh = weights.make(conf["config"], conf["weights"], device, shift=0.0)
+    model = weights.make(ref, conf["config"], conf["weights"], device)
+    fresh = weights.make(ref, conf["config"], conf["weights"], device, shift=0.0)
     assert torch.equal(model.heads.cls_logits.bias, fresh.heads.cls_logits.bias + got)
 
 

@@ -1,15 +1,16 @@
 """Nothing the benchmark runs loads the JAX side (compared by whole
 top-level module names: the port's name begins with the JAX package's), and
-the reference imports nothing of the program."""
+no reference package that a configuration names imports anything of the
+program."""
 import ast
 import glob
+import json
 import os
 import subprocess
 import sys
 
-from benchmark.conftest import ROOT
+from benchmark.conftest import DATA, ROOT
 
-BENCH = os.path.join(ROOT, "benchmark")
 
 PROBE = r"""
 import glob, importlib, os, sys
@@ -41,21 +42,39 @@ def test_benchmark_loads_nothing_of_the_jax_side():
     assert not names & {"jax", "jaxlib", "flax", "waymo_2d_tracking_tpu"}
 
 
+def _reference_packages() -> list:
+    """Every package that a configuration of BENCHMARK.json or of the tests'
+    bench names under ``reference``."""
+    found = set()
+    for bench in (os.path.join(ROOT, "BENCHMARK.json"), os.path.join(DATA, "bench.json")):
+        with open(bench) as f:
+            for conf in json.load(f)["configs"]:
+                with open(os.path.join(ROOT, conf["file"])) as g:
+                    found.add(json.load(g)["reference"])
+    return sorted(found)
+
+
 def test_reference_imports_nothing_of_the_program():
-    for path in glob.glob(os.path.join(BENCH, "reference", "*.py")):
-        tree = ast.parse(open(path).read())
-        for node in ast.walk(tree):
-            names = []
-            if isinstance(node, ast.Import):
-                names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.module:
-                names = [node.module]
-            for n in names:
-                assert n.split(".")[0] not in ("waymo_2d_tracking_tpu_torch",
-                                               "waymo_2d_tracking_tpu", "jax"), (path, n)
-    code = (f"import sys; sys.path.insert(0, {ROOT!r})\n"
-            "import benchmark.reference.model, benchmark.reference.postprocess\n"
-            "import benchmark.reference.preprocess, benchmark.reference.tracker\n"
-            "import benchmark.reference.records\n"
-            "print(','.join(sorted({m.split('.')[0] for m in sys.modules})))")
-    assert "waymo_2d_tracking_tpu_torch" not in _top_level(code)
+    packages = _reference_packages()
+    assert "benchmark/reference" in packages
+    for package in packages:
+        paths = glob.glob(os.path.join(ROOT, package, "*.py"))
+        assert paths, package
+        for path in paths:
+            tree = ast.parse(open(path).read())
+            for node in ast.walk(tree):
+                names = []
+                if isinstance(node, ast.Import):
+                    names = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and node.module:
+                    names = [node.module]
+                for n in names:
+                    assert n.split(".")[0] not in ("waymo_2d_tracking_tpu_torch",
+                                                   "waymo_2d_tracking_tpu", "jax"), (path, n)
+        modules = [package.replace("/", ".") + "." + os.path.basename(p)[:-3] for p in paths
+                   if not p.endswith("__init__.py")]
+        code = (f"import sys; sys.path.insert(0, {ROOT!r})\n"
+                f"import {', '.join(modules)}\n"
+                "print(','.join(sorted({m.split('.')[0] for m in sys.modules})))")
+        assert not _top_level(code) & {"waymo_2d_tracking_tpu_torch", "waymo_2d_tracking_tpu",
+                                       "jax"}, package

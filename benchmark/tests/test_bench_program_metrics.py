@@ -3,7 +3,8 @@ counters (``w2t/`` ranges and ``utils/profiling.py counters()``): on
 hand-made profiler events and counter dicts, each ``None`` where what it
 reads is absent (a program without the spans or the counters); on a traced
 tiny run on the CPU; and on the card, a traced stretch of
-``headline.segments`` that reports them all."""
+``headline.segments`` and of ``headline.jpeg_segments`` that reports them
+all."""
 import json
 import os
 import types
@@ -147,9 +148,10 @@ def test_readers_on_a_traced_tiny_run():
 
 
 @pytest.mark.card
-def test_traced_headline_reports_the_programs_metrics(card):
+@pytest.mark.parametrize("name", ["headline.segments", "headline.jpeg_segments"])
+def test_traced_headline_reports_the_programs_metrics(card, name):
     from waymo_2d_tracking_tpu_torch.utils import profiling
-    cell = spec.resolve("headline.segments")
+    cell = spec.resolve(name)
     _reset_counters()
     res = core.run(cell, SEED, 0.0, True, "cuda")
     assert profiling.counters().get("graph_captures", 0) == 0
