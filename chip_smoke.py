@@ -6,7 +6,7 @@
 Phases (any failed check raises, and the script exits non-zero):
 
 0. the card (``nvidia-smi`` name and power limit), then ``nvcc`` builds all
-   four CUDA kernels from ``waymo_2d_tracking_tpu_torch/csrc/`` in parallel;
+   five CUDA kernels from ``waymo_2d_tracking_tpu_torch/csrc/`` in parallel;
 1. each kernel against its plain PyTorch version on the card at the main
    path's shapes, timed by CUDA events around a call (``ms``, the measure
    of every run so far; it holds the host's time to reach the launch too)
@@ -38,6 +38,11 @@ Phases (any failed check raises, and the script exits non-zero):
    all) with zero-width, inverted and wholly outside boxes on an aligned and
    an unaligned feature tensor, timed beside the matmul form for one image
    and for a chunk of 128 images, each beside its bound;
+1w. the Swin window-attention kernel (``csrc/window_attention.cu``) in bf16
+   against its plain path in float32 on the same inputs, at the 40-image
+   shapes of Swin-T's four stages at 640x960 (config 4's chunk in one
+   forward), with shift 0 and 3, at ``tests/test_torch_swin.py``'s
+   tolerance; each launch timed beside the plain path in bf16 and its bound;
 1b. ``area_downscale`` (the ``decode_scale_denom`` downscale) on the card
    byte-equal to the same function on CPU tensors at d = 2 and 4 on
    1280x1920, 886x1920 and 67x99 frames, with the time of a 128-frame
@@ -99,6 +104,9 @@ Phases (any failed check raises, and the script exits non-zero):
    runs of 4 chunks of 8 frames: camera-frames/s, peak memory, the split,
    launches per chunk, which must be 1 NMS at B = 40 and 8 auction at P = 5;
    the captured step at P = 5, n = 128 bit-identical to the eager loop),
+   ``config4_swin_t`` (the same rig and frames with the Swin-T backbone:
+   launches per chunk 1 NMS, 8 auction and 12 window attention, one a
+   block of the 40-image forward, which every other path launches 0 times),
    ``online_rig`` (``OnlineMultiCamTracker`` on the same config and frames,
    32 ticks after a warm-up: latency percentiles, 1 NMS and 1 auction
    launch a tick) and ``online_headline`` (``OnlineTracker`` on the
@@ -915,6 +923,74 @@ def phase_roi_align(torch, roi, card):
         f"{ms_text(chunk_mm_dev_ms)}")
     return dict(max_abs_err=max(err32, err16, err_small, err_odd), ms=ms, plain_ms=plain_ms,
                 bound_ms=bnd, bound_by=by, library_ms=None, device_ms=dev_ms)
+
+
+# (Hp, Wp, C, heads) of Swin-T's four stages at 640x960: the maps 160x240,
+# 80x120, 40x60 and 20x30 padded to multiples of the 7x7 window
+SWIN_STAGES = ((161, 245, 96, 3), (84, 126, 192, 6), (42, 63, 384, 12), (21, 35, 768, 24))
+SWIN_BATCH = 40         # config 4's chunk, 8 ticks x 5 cameras, in one forward
+# Seeded random Swin-T weights score too low for config 4's lowered gates;
+# as the presets' CPU tests raise their slim detector's class-logit bias
+SWIN_CLASS_BIAS_SHIFT = 2.5
+
+
+def phase_window_attention(torch, wa, card):
+    """Phase 1w. The tolerance is tests/test_torch_swin.py's: the kernel reads
+    the bf16 inputs exactly and works in float32, so it stands from the
+    plain path in float32 by its one rounding to bf16 (2^-9 relative) plus
+    summation order and __expf (some 1e-6 of the largest |v|). The bound
+    is of the kernel as built, float32 products on the CUDA cores: q, k and
+    v read once and the output written once (8 C bytes a padded token) and
+    the table, against 196 C operations a token. Returns stage 1's shifted
+    launch as the kernel's ``ms`` / ``plain_ms`` / ``bound_ms``, every launch
+    under ``cases`` and a camera-frame's 12 launches under ``per_frame``."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(19)
+    cases = []
+    for hp, wp, c, heads in SWIN_STAGES:
+        qkv = torch.randn((SWIN_BATCH, hp, wp, 3 * c), generator=g, device=dev).bfloat16()
+        table = torch.randn((169, heads), generator=g, device=dev)
+        scale = float(qkv[..., 2 * c:].float().abs().max())
+        tokens = SWIN_BATCH * hp * wp
+        bnd, by = bound(8 * c * tokens + 169 * heads * 4, 196 * c * tokens)
+        for shift in (0, 3):
+            got = wa.window_attention_cuda(qkv, table, heads, 7, shift).float()
+            want = wa.window_attention_reference(qkv.float(), table, heads, 7, shift)
+            excess = float(((got - want).abs() - 2.0 ** -8 * want.abs() - 1e-5 * scale).max())
+            err = float((got - want).abs().max())
+            del got, want
+            if excess > 0:
+                raise AssertionError(f"window attention kernel at {(hp, wp, c, heads)} shift "
+                                     f"{shift}: max |err| {err} beyond the tolerance by {excess}")
+            ms = cuda_time_ms(lambda: wa.window_attention_cuda(qkv, table, heads, 7, shift),
+                              reps=10)
+            plain_ms = cuda_time_ms(
+                lambda: wa.window_attention_reference(qkv, table, heads, 7, shift), reps=3,
+                warmup=1)
+            dev_ms = device_ms(lambda: wa.window_attention_cuda(qkv, table, heads, 7, shift),
+                               reps=5)
+            cases.append(dict(stage=[hp, wp, c, heads], shift=shift, max_abs_err=err,
+                              scale=scale, ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                              device_ms=dev_ms))
+            log(f"[1w] window attention kernel vs plain at B={SWIN_BATCH}, map {hp}x{wp}, "
+                f"C={c}, {heads} heads, shift {shift}: bf16 max |err| {err:.3e} (max |v| "
+                f"{scale:.3f}, within rtol 2^-8 + atol 1e-5 max|v|) ({card}); kernel "
+                f"{ms:.4f} ms, plain in bf16 {plain_ms:.3f} ms, bound {bnd:.4f} ms ({by}), "
+                f"device time {ms_text(dev_ms)}")
+        del qkv
+    torch.cuda.empty_cache()
+    # a camera-frame's 12 launches: each stage's blocks, half of them shifted
+    depth = dict(zip((st[0] for st in SWIN_STAGES), (2, 2, 6, 2)))
+    frame = {k: sum(cs[k] * depth[cs["stage"][0]] / 2 for cs in cases) / SWIN_BATCH
+             for k in ("ms", "plain_ms", "bound_ms")}
+    log(f"[1w] a 640x960 camera-frame's 12 launches, from the 40-image launches: kernel "
+        f"{frame['ms']:.4f} ms, plain in bf16 {frame['plain_ms']:.3f} ms, bound "
+        f"{frame['bound_ms']:.4f} ms ({card})")
+    first = next(cs for cs in cases if cs["stage"][0] == SWIN_STAGES[0][0] and cs["shift"] == 3)
+    return dict(max_abs_err=max(cs["max_abs_err"] for cs in cases), ms=first["ms"],
+                plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
+                bound_by=first["bound_by"], library_ms=None, device_ms=first["device_ms"],
+                cases=cases, per_frame=frame)
 
 
 def phase_downscale(np, torch, card):
@@ -1774,11 +1850,13 @@ def latency_text(stats) -> str:
             f"{stats['p99_ms']:.3f}, max {stats['max_ms']:.3f} over {stats['count']}")
 
 
-def phase_config4(np, torch, counters, card, frames):
+def phase_config4(np, torch, counters, card, frames, name="config4_multicam", backbone=None):
     """BASELINE config 4 at full width: 5 cameras of 1280x1920 frames through
     ``MultiCamPipeline.run_segments_group`` (one 40-image detector batch a
     chunk, the camera-batched tracker, JSONL and gallery sidecars), a warm-up
-    chunk, then 2 runs of 4 chunks."""
+    chunk, then 2 runs of 4 chunks. ``backbone`` replaces config 4's
+    ResNet-50 (``"swin_t"``: 12 window-attention launches a chunk, and the
+    class-logit bias raised by ``SWIN_CLASS_BIAS_SHIFT``)."""
     import tempfile
 
     from waymo_2d_tracking_tpu_torch.config import Config, _update
@@ -1788,11 +1866,15 @@ def phase_config4(np, torch, counters, card, frames):
     from waymo_2d_tracking_tpu_torch.tracker import init_multicam_state, track_segment
     from waymo_2d_tracking_tpu_torch.tracker.graph import track_chunk
 
-    cfg = _update(Config(), {**CONFIG4, "tracker": {**CONFIG4["tracker"],
-                                                    **CONFIG4_RANDOM_WEIGHT_GATES}})
+    detector = {**CONFIG4["detector"], **({"backbone": backbone} if backbone else {})}
+    cfg = _update(Config(), {**CONFIG4, "detector": detector,
+                             "tracker": {**CONFIG4["tracker"], **CONFIG4_RANDOM_WEIGHT_GATES}})
     chunk, cams = cfg.pipeline.chunk_frames, len(cfg.pipeline.cameras)
     stages = stages_of(cfg)
     pipe = MultiCamPipeline(cfg, num_cams=cams, device="cuda", seed=0)
+    if backbone == "swin_t":
+        with torch.no_grad():
+            pipe.detector.module.heads.cls_logits.bias.add_(SWIN_CLASS_BIAS_SHIFT)
 
     def group(lo, hi):
         return [SegmentFrames("config4", cam + 1, list(range(hi - lo)), frames[lo:hi, cam])
@@ -1814,19 +1896,20 @@ def phase_config4(np, torch, counters, card, frames):
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         side = np.load(os.path.join(out, "config4_3.gallery.npz"))
     per_chunk = {k: v / chunks for k, v in launch_runs[0].items()}
-    log(f"[3] config4_multicam main path (5 cameras at 1280x1920, chunk {chunk}), 2 runs of "
+    log(f"[3] {name} main path (5 cameras at 1280x1920, chunk {chunk}), 2 runs of "
         f"{chunks} chunks: camera-frames/s {json.dumps(rates)} ({card}); peak device memory "
         f"{peak_gb:.2f} GB; records per camera {json.dumps([s['records'] for s in stats])}; "
         f"launches per run {json.dumps(launch_runs)}, per chunk {json.dumps(per_chunk)}; last "
         f"NMS launch (B, N) {shapes[0]}, last auction launch (P, n) {shapes[1]}")
-    want = {"nms_mask": 1, "auction": chunk * stages}
-    check_int8_count("config4_multicam", cfg, launch_runs[0])
+    want = {"nms_mask": 1, "auction": chunk * stages,
+            "window_attention": 12 if cfg.detector.backbone == "swin_t" else 0}
+    check_int8_count(name, cfg, launch_runs[0])
     if any(per_chunk[k] != v for k, v in want.items()) or shapes[0][0] != chunk * cams \
             or shapes[1] != (cams, 128):
-        raise AssertionError(f"config4_multicam: expected per chunk {want}, NMS at B={chunk * cams} "
+        raise AssertionError(f"{name}: expected per chunk {want}, NMS at B={chunk * cams} "
                              f"and the auction at P={cams}, n=128; got {per_chunk}, {shapes}")
     if side["track_id"].shape != (128,) or side["embed"].shape != (128, 128):
-        raise AssertionError(f"config4_multicam sidecar shapes {side['embed'].shape}")
+        raise AssertionError(f"{name} sidecar shapes {side['embed'].shape}")
 
     # the split of one chunk, CUDA events, median of 3; the captured step
     # (P = 5 cameras, n = 128) held to the eager loop bit for bit
@@ -1852,26 +1935,26 @@ def phase_config4(np, torch, counters, card, frames):
         ev[5].synchronize()
         runs.append([ev[i].elapsed_time(ev[i + 1]) for i in range(5)])
         if not (same_records(torch, states, e_states) and same_records(torch, outs, e_outs)):
-            raise AssertionError("config4_multicam: the captured step differs from the eager loop")
+            raise AssertionError(f"{name}: the captured step differs from the eager loop")
     names = ("letterbox_ms", "detector_forward_ms", "candidates_topk_nms_roi_align_reid_ms",
              "tracker_loop_ms", "tracker_loop_eager_ms")
     split = {k: statistics.median(r[i] for r in runs) for i, k in enumerate(names)}
-    log(f"[3] config4_multicam: {chunk}-frame chunk of {cams} cameras ({chunk * cams} images) "
+    log(f"[3] {name}: {chunk}-frame chunk of {cams} cameras ({chunk * cams} images) "
         f"split, median of 3, the letterbox with its pageable copy ({card}): {json.dumps(split)}; "
         f"each run: {json.dumps(runs)}; the captured step's states and outputs equal the eager "
         f"loop's bit for bit in each run")
     d, o = dets.to_numpy(), outs.to_numpy()
     if not (np.isfinite(d.boxes).all() and np.isfinite(d.embeds).all()
             and np.isfinite(o.boxes).all()) or o.valid.shape != (chunk, cams, 128):
-        raise AssertionError("config4_multicam outputs are not finite or have the wrong shape")
+        raise AssertionError(f"{name} outputs are not finite or have the wrong shape")
     live = (states.status != 0).sum(-1).tolist()
-    log(f"[3] config4_multicam outputs finite; valid detections per image "
+    log(f"[3] {name} outputs finite; valid detections per image "
         f"{d.valid.sum(1).mean():.2f}, above the lowered tracker gate "
         f"{(d.valid & (d.scores >= cfg.tracker.score_threshold)).sum(1).mean():.2f}, max score "
         f"{d.scores.max():.3f} (random weights); after one chunk ids born per camera "
         f"{json.dumps(states.next_id.tolist())}, live slots per camera {json.dumps(live)}")
     if min(states.next_id.tolist()) == 0:
-        raise AssertionError("config4_multicam: a camera's tracker never birthed a track")
+        raise AssertionError(f"{name}: a camera's tracker never birthed a track")
     del pipe
     torch.cuda.empty_cache()
     return launch_runs[0]
@@ -1912,6 +1995,10 @@ def phase_new_paths(np, torch, counters, card, headline_frames, plans):
         f"{frames.shape[2]}x{frames.shape[3]} on the host in {time.perf_counter() - t0:.1f} s")
     plans["d2"] = save_d2_frames(np, frames)
     paths = {"config4_multicam": phase_config4(np, torch, counters, card, frames)}
+    torch.cuda.empty_cache()
+    paths["config4_swin_t"] = phase_config4(np, torch, counters, card, frames,
+                                            "config4_swin_t", backbone="swin_t")
+    torch.cuda.empty_cache()
 
     cfg4 = _update(Config(), {**CONFIG4, "tracker": {**CONFIG4["tracker"],
                                                      **CONFIG4_RANDOM_WEIGHT_GATES}})
@@ -3806,6 +3893,7 @@ def main() -> int:
 
     from waymo_2d_tracking_tpu_torch.models import quant
     from waymo_2d_tracking_tpu_torch.ops import _cuda, assign, nms, roi_align, topk
+    from waymo_2d_tracking_tpu_torch.ops import window_attention as wa
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3826,10 +3914,11 @@ def main() -> int:
 
     counters = {"nms_mask": nms.nms_mask_cuda, "auction": assign.auction_kernel_cuda,
                 "topk_threshold": topk.topk_threshold_cuda, "roi_align": roi_align.roi_align_cuda,
-                "int8_gemm": quant.int8_gemm}
+                "int8_gemm": quant.int8_gemm, "window_attention": wa.window_attention_cuda}
     kern = {k: {**v, "library_ms": None} for k, v in phase_kernels(torch, nms, assign, smi).items()}
     kern["topk_threshold"] = phase_topk(torch, topk, smi)
     kern["roi_align"] = phase_roi_align(torch, roi_align, smi)
+    kern["window_attention"] = phase_window_attention(torch, wa, smi)
     log(f"[1] launches in phase 1 (comparisons and timing, not a main path): "
         f"{json.dumps({k: fn.launches for k, fn in counters.items()})}")
     phase_downscale(np, torch, smi)
@@ -3865,7 +3954,8 @@ def main() -> int:
     log(f"[B] done in {time.perf_counter() - t0:.1f} s")
     # neither the top-k threshold nor the RoIAlign kernel is on a main path
     # (the JAX package runs them only through their own entry points); their
-    # counts are 0 there and are reported as they are
+    # counts are 0 there and are reported as they are; the window-attention
+    # kernel runs on the Swin-T paths alone (config4_swin_t)
     log(f"[3] launches on the main paths (first run of each): {json.dumps(paths)}")
 
     sources = {
@@ -3877,6 +3967,8 @@ def main() -> int:
                            "waymo_2d_tracking_tpu/ops/topk.py:35"),
         "roi_align": ("waymo_2d_tracking_tpu_torch/csrc/roi_align.cu",
                       "waymo_2d_tracking_tpu/ops/roi_align.py:187"),
+        "window_attention": ("waymo_2d_tracking_tpu_torch/csrc/window_attention.cu",
+                             "none: the JAX package has no attention backbone"),
     }
     # launches: the headline's first run; launches_by_path: every main path's
     record = {"kernels": [

@@ -199,11 +199,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _counters() -> dict:
     from waymo_2d_tracking_tpu_torch.models.quant import int8_gemm
-    from waymo_2d_tracking_tpu_torch.ops import assign, nms, roi_align, topk
+    from waymo_2d_tracking_tpu_torch.ops import assign, nms, roi_align, topk, window_attention
 
     return {"nms_mask": nms.nms_mask_cuda, "auction": assign.auction_kernel_cuda,
             "topk_threshold": topk.topk_threshold_cuda, "roi_align": roi_align.roi_align_cuda,
-            "int8_gemm": int8_gemm}
+            "int8_gemm": int8_gemm, "window_attention": window_attention.window_attention_cuda}
 
 
 def main(argv=None) -> int:

@@ -1,4 +1,5 @@
-"""Full detector (counterpart of ``models/detector.py``): ResNet + FPN + FCOS
+"""Full detector (counterpart of ``models/detector.py``): ResNet (or the Swin
+Transformer of ``models/swin.py``, which the JAX package lacks) + FPN + FCOS
 or CenterNet heads + ReID, with batched post-processing -- top-k candidates,
 class-aware NMS (the CUDA kernel on the card) and RoIAlign + ReID embedding --
 emitting tracker-ready ``Detections``. ``quant='int8'`` serves a w8a8 trunk
@@ -22,6 +23,7 @@ from torch import nn
 from waymo_2d_tracking_tpu_torch import resolve_device
 from waymo_2d_tracking_tpu_torch.config import DetectorConfig
 from waymo_2d_tracking_tpu_torch.models import resnet as resnet_mod
+from waymo_2d_tracking_tpu_torch.models import swin as swin_mod
 from waymo_2d_tracking_tpu_torch.models.centernet import (
     PRIOR_BIAS,
     CenterNetHeads,
@@ -38,6 +40,7 @@ from waymo_2d_tracking_tpu_torch.ops.roi_align import (
 )
 from waymo_2d_tracking_tpu_torch.ops.topk import METHODS as TOPK_METHODS
 from waymo_2d_tracking_tpu_torch.types import Detections
+from waymo_2d_tracking_tpu_torch.utils.profiling import span
 
 # class-aware NMS: boxes of different classes are offset far apart so one
 # class-agnostic NMS pass never cross-suppresses
@@ -53,6 +56,7 @@ _BACKBONES = {
     "resnet50": resnet_mod.ResNet50,
     "resnet101": resnet_mod.ResNet101,
     "resnet18slim": resnet_mod.ResNet18Slim,
+    "swin_t": swin_mod.SwinT,
 }
 
 
@@ -112,7 +116,8 @@ class Detector(nn.Module):
                                  quant=head_quant, dtype=dtype)
 
     def forward(self, images: torch.Tensor):
-        c_feats = self.backbone(images)
+        with span("backbone"):
+            c_feats = self.backbone(images)
         p_feats = self.fpn(c_feats)
         head_out = self.heads(p_feats)
         return head_out, {lvl: f.permute(0, 2, 3, 1) for lvl, f in p_feats.items()}
@@ -144,9 +149,13 @@ class Detector(nn.Module):
         and 1). ``truncated`` (training's ``create_state``) draws the kernels
         as flax's ``lecun_normal`` does, a normal truncated at two standard
         deviations and rescaled; the serving paths' random weights keep their
-        plain normal draws, whose outputs earlier measurements rest on."""
+        plain normal draws, whose outputs earlier measurements rest on. A
+        Swin backbone's relative-position bias tables are drawn normal x
+        0.02, the release's init, in their place in the parameter order."""
         for name, p in self.named_parameters():
-            if name.endswith("weight") and p.dim() > 1:
+            if name.endswith(swin_mod.BIAS_TABLE):
+                p.copy_(torch.randn(p.shape, generator=generator) * swin_mod.BIAS_TABLE_STD)
+            elif name.endswith("weight") and p.dim() > 1:
                 fan_in = p[0].numel()
                 if truncated:
                     nn.init.trunc_normal_(p, 0.0, 1.0, -2.0, 2.0, generator=generator)

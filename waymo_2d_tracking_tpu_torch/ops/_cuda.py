@@ -31,7 +31,7 @@ from typing import Dict, Sequence
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-KERNELS = ("nms", "auction", "topk", "roi_align")
+KERNELS = ("nms", "auction", "topk", "roi_align", "window_attention")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

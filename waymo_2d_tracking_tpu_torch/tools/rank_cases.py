@@ -26,10 +26,11 @@ from waymo_2d_tracking_tpu_torch.parallel import sharding as shd
 
 
 def _kernels():
-    from waymo_2d_tracking_tpu_torch.ops import assign, nms, roi_align, topk
+    from waymo_2d_tracking_tpu_torch.ops import assign, nms, roi_align, topk, window_attention
 
     return {"nms_mask": nms.nms_mask_cuda, "auction": assign.auction_kernel_cuda,
-            "topk_threshold": topk.topk_threshold_cuda, "roi_align": roi_align.roi_align_cuda}
+            "topk_threshold": topk.topk_threshold_cuda, "roi_align": roi_align.roi_align_cuda,
+            "window_attention": window_attention.window_attention_cuda}
 
 
 def launches() -> Dict[str, int]:
