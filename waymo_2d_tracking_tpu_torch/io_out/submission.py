@@ -11,11 +11,16 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import operator
+from itertools import repeat
+from json.encoder import encode_basestring_ascii
 from typing import Iterable, List, Sequence
 
 import numpy as np
 
 from waymo_2d_tracking_tpu_torch.utils import protolite as pb
+from waymo_2d_tracking_tpu_torch.utils.profiling import count
 
 # Waymo label.proto Label.Type enum values
 TYPE_VEHICLE = 1
@@ -88,13 +93,46 @@ class TrackRecord:
                 self.center_x + hx, self.center_y + hy)
 
 
+# A record's JSONL line as ``json.dumps(dataclasses.asdict(r), sort_keys=True)``
+# writes it, for a record whose fields have exactly their annotated types
+# and finite floats: keys in sorted order, floats and ints by their repr
+# (as json's encoder writes them), strings by json's own ASCII escaping.
+_LINE_FIELDS = ("camera_name", "center_x", "center_y", "context_name", "length",
+                "object_id", "object_type", "score", "timestamp_micros", "width")
+_LINE_TYPES = (int, float, float, str, float, str, int, float, int, float)
+_LINE = "{" + ", ".join(
+    f'"{k}": %{"s" if t is str else "r"}' for k, t in zip(_LINE_FIELDS, _LINE_TYPES)) + "}\n"
+_line_values = operator.attrgetter(*_LINE_FIELDS)
+
+
 def write_jsonl(path: str, records: Iterable[TrackRecord]) -> int:
-    n = 0
+    """One line a record, ``json.dumps(dataclasses.asdict(r),
+    sort_keys=True)``'s bytes, written to ``path`` in one write, and counted
+    (the lines before a record that raises included). A record whose fields have
+    exactly their annotated types and finite floats is written from the
+    template; any other (a numpy scalar, a bool, NaN or infinity, another
+    class) by ``json.dumps`` itself."""
+    lines = []
+    slow = 0
     with open(path, "w") as f:
-        for r in records:
-            f.write(json.dumps(dataclasses.asdict(r), sort_keys=True) + "\n")
-            n += 1
-    return n
+        try:
+            for r in records:
+                if type(r) is TrackRecord:
+                    v = _line_values(r)
+                    # a sum is finite only if each of its terms is
+                    if tuple(map(type, v)) == _LINE_TYPES and math.isfinite(
+                            v[1] + v[2] + v[4] + v[7] + v[9]):
+                        lines.append(_LINE % (
+                            v[0], v[1], v[2], encode_basestring_ascii(v[3]), v[4],
+                            encode_basestring_ascii(v[5]), v[6], v[7], v[8], v[9]))
+                        continue
+                lines.append(json.dumps(dataclasses.asdict(r), sort_keys=True) + "\n")
+                slow += 1
+        finally:
+            f.write("".join(lines))
+            count("records_lines", len(lines))
+            count("records_lines_slow", slow)
+    return len(lines)
 
 
 def read_jsonl(path: str) -> List[TrackRecord]:
@@ -171,26 +209,51 @@ def _waymo_type(cls: int) -> int:
     return CLASS_TO_WAYMO_TYPE[cls]
 
 
+def _int_column(a: np.ndarray) -> list:
+    """Python ints as ``int(a[i])`` gives each."""
+    return a.tolist() if a.dtype.kind in "iu" else [int(v) for v in a.tolist()]
+
+
+def _records(valid, boxes, scores, classes, context_name, timestamps, camera_name,
+             object_ids) -> List[TrackRecord]:
+    """The valid slots of (T, N) arrays as records, frame by frame and slot
+    by slot, built from whole columns: the values of ``TrackRecord.from_xyxy``
+    on each slot (its float64 arithmetic done on the column).
+    ``object_ids(t, n)`` names the records from their frame and slot
+    indices (arrays)."""
+    valid = np.asarray(valid)
+    t, n = np.nonzero(valid)                 # row-major: the frame loop's order
+    if not t.size:
+        return []
+    cls = np.asarray(classes)[t, n]
+    if cls.dtype.kind not in "iu":
+        cls = np.asarray(_int_column(cls))
+    bad = np.flatnonzero((cls < 0) | (cls >= len(CLASS_TO_WAYMO_TYPE)))
+    if bad.size:
+        _waymo_type(int(cls[bad[0]]))        # raises
+    waymo_types = np.asarray(CLASS_TO_WAYMO_TYPE)[cls].tolist()
+    x1, y1, x2, y2 = np.asarray(boxes)[t, n].astype(np.float64).T
+    cx, cy = ((x1 + x2) / 2).tolist(), ((y1 + y2) / 2).tolist()
+    length, width = (x2 - x1).tolist(), (y2 - y1).tolist()
+    score = np.asarray(scores)[t, n].astype(np.float64).tolist()
+    frames, per_frame = np.unique(t, return_counts=True)
+    stamps = []
+    for f, k in zip(frames.tolist(), per_frame.tolist()):
+        stamps += [int(timestamps[f])] * k
+    return list(map(TrackRecord, repeat(context_name), stamps, repeat(int(camera_name)),
+                    object_ids(t, n), waymo_types, cx, cy, length, width, score))
+
+
 def records_from_detections(
     dets, context_name: str, timestamps: Sequence[int], camera_name: int,
     scale: float = 1.0,
 ) -> List[TrackRecord]:
     """Stacked numpy Detections (T, D, ...) -> flat records; object_id is the
     per-frame detection index (no identity across frames)."""
-    valid = np.asarray(dets.valid)
-    boxes = np.asarray(dets.boxes) / scale
-    scores = np.asarray(dets.scores)
-    classes = np.asarray(dets.classes)
-    recs = []
-    for t in range(valid.shape[0]):
-        for i in np.flatnonzero(valid[t]):
-            recs.append(TrackRecord.from_xyxy(
-                context_name, timestamps[t], camera_name,
-                object_id=f"det_{t}_{int(i)}",
-                object_type=_waymo_type(int(classes[t, i])),
-                box_xyxy=boxes[t, i], score=scores[t, i],
-            ))
-    return recs
+    return _records(
+        dets.valid, np.asarray(dets.boxes) / scale, dets.scores, dets.classes,
+        context_name, timestamps, camera_name,
+        lambda t, n: [f"det_{a}_{b}" for a, b in zip(t.tolist(), n.tolist())])
 
 
 def records_from_track_outputs(
@@ -203,20 +266,12 @@ def records_from_track_outputs(
     0 fills per-track gaps of up to that many frames by linear interpolation
     on the exact ``timestamps`` grid (``io_out/postprocess.py``).
     """
-    valid = np.asarray(outputs.valid)
     ids = np.asarray(outputs.track_id)
-    boxes = np.asarray(outputs.boxes) / scale
-    scores = np.asarray(outputs.scores)
-    classes = np.asarray(outputs.classes)
-    recs = []
-    for t in range(valid.shape[0]):
-        for s in np.flatnonzero(valid[t]):
-            recs.append(TrackRecord.from_xyxy(
-                context_name, timestamps[t], camera_name,
-                object_id=f"{camera_name}_{int(ids[t, s])}",
-                object_type=_waymo_type(int(classes[t, s])),
-                box_xyxy=boxes[t, s], score=scores[t, s],
-            ))
+    prefix = f"{camera_name}_"
+    recs = _records(
+        outputs.valid, np.asarray(outputs.boxes) / scale, outputs.scores, outputs.classes,
+        context_name, timestamps, camera_name,
+        lambda t, n: [prefix + str(i) for i in _int_column(ids[t, n])])
     if interp_max_gap > 0:
         from waymo_2d_tracking_tpu_torch.io_out.postprocess import interpolate_gaps
 
