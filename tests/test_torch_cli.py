@@ -1,12 +1,16 @@
 """The port's command line (``cli.py``) against the JAX package's ``w2t`` on
 the same inputs: the verbs that need no detector (track --from-detections,
 tune, interp, eval with --hota / --per-class / --workers / --ignore, eval-det,
-submit, import-mot, export-mot), the verb list, ``doctor``, ``--sharded`` on a
+submit, import-mot, export-mot), the verb list, ``doctor``, ``bench`` (an
+exec of ``benchmark/run.py``), ``--sharded`` on a
 world of one and its refusal under ``--online``, and the card default of
 ``--device``."""
+import argparse
 import dataclasses
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -73,11 +77,62 @@ def test_help_lists_every_jax_verb():
     want, got = verbs(jcli.build_parser()), verbs(cli.build_parser())
     assert set(want) <= set(got)
     assert set(got) - set(want) == {"export"}
-    # bench: the JAX verb's flags, the harness's row flags it does not pass
-    # on, and --device
-    assert flags(want["bench"]) <= flags(got["bench"])
-    assert flags(got["bench"]) - flags(want["bench"]) == {
-        "--device", "--headline", "--int8", "--src-net", "--multicam"}
+    # bench: no flags of its own; every argument is benchmark/run.py's
+    assert flags(got["bench"]) == set()
+    (rest,) = got["bench"]._actions
+    assert rest.dest == "bench_args" and rest.nargs == argparse.REMAINDER
+
+
+@pytest.mark.parametrize("argv", [
+    ["--workload", "headline.segments", "--seed", "7", "--seconds", "50", "--trace", "1"],
+    ["-h"],
+    [],
+], ids=["cell", "help", "none"])
+def test_bench_verb_execs_the_benchmark(argv, monkeypatch):
+    """``bench`` replaces the process with ``benchmark/run.py`` from the
+    repository's root, its arguments passed on as given and the repository
+    on ``PYTHONPATH``."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    seen = {}
+    monkeypatch.setattr(os, "chdir", lambda path: seen.setdefault("cwd", path))
+    monkeypatch.setattr(os, "execve", lambda exe, args, env: seen.update(
+        exe=exe, args=args, path=env["PYTHONPATH"].split(os.pathsep)))
+    monkeypatch.setenv("PYTHONPATH", "/elsewhere")
+    cli.main(["bench"] + argv)
+    assert seen["cwd"] == root
+    assert seen["exe"] == sys.executable
+    assert seen["args"] == [sys.executable, os.path.join(root, "benchmark", "run.py")] + argv
+    assert seen["path"] == [root, "/elsewhere"]
+
+
+def test_bench_verb_without_the_benchmark_says_which_path(monkeypatch, capsys):
+    missing = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(cli.__file__))),
+                           "benchmark", "run.py")
+    real_isfile = os.path.isfile
+    monkeypatch.setattr(os.path, "isfile", lambda p: p != missing and real_isfile(p))
+    monkeypatch.setattr(os, "execve", lambda *a: pytest.fail("exec without the benchmark"))
+    with pytest.raises(SystemExit) as e:
+        cli.main(["bench", "--workload", "headline.segments"])
+    assert e.value.code != 0
+    (line,) = str(e.value.code).splitlines()
+    assert missing in line
+
+
+def test_bench_verb_reaches_the_benchmark_without_a_card():
+    """The verb end to end in a fresh process: ``benchmark/run.py`` itself
+    answers, and without a card it refuses with its own message and prints
+    no result."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the benchmark would run")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-m", "waymo_2d_tracking_tpu_torch.cli", "bench",
+                        "--workload", "headline.segments", "--seed", "1", "--seconds", "1"],
+                       cwd=os.path.join(root, "tests"), env=dict(env, PYTHONPATH=root),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 2, r.stderr[-2000:]
+    assert r.stdout.strip() == ""
+    assert "needs 1 CUDA device(s)" in r.stderr
 
 
 def test_track_from_detections_matches_jax(files, tmp_path, capsys):

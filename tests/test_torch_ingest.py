@@ -42,6 +42,7 @@ from waymo_2d_tracking_tpu_torch.config import (
     TrackerConfig,
 )
 from waymo_2d_tracking_tpu_torch.data import _native, jpeg, tfrecord_native, waymo
+from waymo_2d_tracking_tpu_torch.data.preprocess import area_downscale
 from waymo_2d_tracking_tpu_torch.io_out.submission import read_jsonl
 from waymo_2d_tracking_tpu_torch.pipeline.online import OnlineTracker, _FrameDecoder
 from waymo_2d_tracking_tpu_torch.pipeline.multicam import MultiCamPipeline
@@ -257,6 +258,38 @@ def test_native_scanner_rejects_corrupt_tfrecord(tmp_path):
         tfrecord_native.meta(str(bad), 1, 2, 4, 1, 2, [1])
     with pytest.raises(OSError):
         tfrecord_native.extract(str(bad), 10**9, 100, 4, 1, 1, 2)
+
+
+@pytest.mark.parametrize("denom", [1, 2])
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("source", ["arrays", "jpeg"])
+def test_chunk_iter_places_the_downscale_by_device(source, device, denom):
+    """``SegmentFrames.chunk_iter`` owns where a chunk is downscaled: JPEG
+    bytes decode at 1/denom for any device; decoded arrays stay at source
+    size for a CUDA device (it downscales them after the copy) and are
+    area-downscaled on the host for the CPU. The last chunk repeats its last
+    frame. Only the device's type is read: no card is needed."""
+    rng = np.random.default_rng(denom)
+    frames = rng.integers(0, 255, (5, 32, 48, 3), dtype=np.uint8)
+    blobs = [_encode(f) for f in frames]
+    if source == "jpeg":
+        dec = jpeg.BatchJpegDecoder(32 // denom, 48 // denom, scale_denom=denom)
+        try:
+            want = dec.decode(blobs)
+        finally:
+            dec.close()
+        seg = SegmentFrames("c", 1, list(range(5)), jpeg_frames=blobs)
+    else:
+        want = frames
+        if device == "cpu" and denom > 1:
+            want = area_downscale(torch.from_numpy(frames), denom).numpy()
+        seg = SegmentFrames("c", 1, list(range(5)), frames=frames)
+    assert want.shape[1:3] == ((32 // denom, 48 // denom) if source == "jpeg" or device == "cpu"
+                               else (32, 48))
+    got = list(seg.chunk_iter(4, denom, torch.device(device)))
+    assert [g.shape for g in got] == [(4,) + want.shape[1:]] * 2
+    np.testing.assert_array_equal(got[0], want[:4])
+    np.testing.assert_array_equal(got[1], np.concatenate([want[4:]] * 4))
 
 
 def test_tfrecord_lazy_and_directory_segments(tmp_path):

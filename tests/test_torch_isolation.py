@@ -62,7 +62,7 @@ def test_port_imports_no_jax_in_a_fresh_process():
                 "data.video", "utils.profiling", "utils.compile_cache", "eval.hota",
                 "io_out.motchallenge", "utils.viz", "train.port_torch", "parallel.sharding",
                 "parallel.multihost", "parallel.ring", "parallel.collectives", "parallel.launch",
-                "pipeline.sharded", "pipeline.bench_e2e", "bench"):
+                "pipeline.sharded"):
         assert f"waymo_2d_tracking_tpu_torch.{new}" in mods, new
 
 

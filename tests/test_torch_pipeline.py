@@ -1,8 +1,13 @@
 """The slice as a whole: rendered pixels -> letterbox -> trained detector ->
 NMS -> tracker -> records, through the port's ``SegmentPipeline`` on the CPU,
 against the JAX ``SegmentPipeline`` on the same clip, plus the pixel floors
-the JAX goldens hold (``tests/golden/test_pixels_to_mota.py``)."""
+the JAX goldens hold (``tests/golden/test_pixels_to_mota.py``), and
+``SegmentPipeline.chunk_step`` against the JAX package's ``_chunk_step`` on
+two chunks, at ``decode_scale_denom`` 1 and 2."""
+import os
+
 import numpy as np
+import pytest
 import torch
 
 from waymo_2d_tracking_tpu.config import (
@@ -32,6 +37,8 @@ from waymo_2d_tracking_tpu_torch.weights import fixture_state_dict
 # width of the machine in each would oversubscribe them, and the port's CPU
 # ops are small, so one thread each is fastest.
 torch.set_num_threads(1)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # tests/golden/test_pixels_to_mota.py PIXELS_DET, CLIP and tracker knobs
 DET_KW = dict(
@@ -113,6 +120,66 @@ def test_seed5_clip_matches_jax_and_meets_floors():
     assert m.idf1 >= 0.87, d
     assert m.num_idsw <= 6, d
     assert m.mostly_tracked >= 7, d
+
+
+def test_chunk_step_matches_jax_chunk_step():
+    import jax
+    import jax.numpy as jnp
+    from flax import serialization
+
+    from waymo_2d_tracking_tpu.config import (
+        Config as JaxConfig,
+        DetectorConfig as JaxDetectorConfig,
+        PipelineConfig as JaxPipelineConfig,
+        TrackerConfig as JaxTrackerConfig,
+    )
+    from waymo_2d_tracking_tpu.models.detector import DetectorRunner as JaxRunner
+    from waymo_2d_tracking_tpu.pipeline.run import SegmentPipeline as JaxPipeline
+    from waymo_2d_tracking_tpu.tracker import init_state as jax_init_state
+
+    from waymo_2d_tracking_tpu_torch.data.synthetic import SyntheticClipConfig, render_video_clip
+    from waymo_2d_tracking_tpu_torch.tracker import init_state
+    from waymo_2d_tracking_tpu_torch.weights import from_flax_numpy
+
+    chunk = 4
+    frames, _ = render_video_clip(SyntheticClipConfig(num_frames=2 * chunk, num_objects=8,
+                                                      image_size=(1024, 1536), seed=5))
+    src_hw = tuple(frames.shape[1:3])
+    jdet = JaxDetectorConfig(**DET_KW)
+    template = JaxRunner(jdet).init_params(jax.random.PRNGKey(0), batch_size=1)
+    with open(os.path.join(ROOT, "tests", "fixtures", "pixels_detector.msgpack"), "rb") as f:
+        variables = serialization.from_bytes(template, f.read())
+    jcfg = JaxConfig(detector=jdet, tracker=JaxTrackerConfig(**TRK_KW),
+                     pipeline=JaxPipelineConfig(chunk_frames=chunk))
+    jpipe = JaxPipeline(jcfg, params=variables)
+    jstate, want = jax_init_state(jcfg.tracker), []
+    for start in (0, chunk):
+        jstate, jout, jscale = jpipe._chunk_step(jpipe.params, jstate,
+                                                 jnp.asarray(frames[start:start + chunk]),
+                                                 src_hw=src_hw)
+        want.append((jax.tree.map(np.asarray, jout), float(jscale)))
+    state_dict = from_flax_numpy(jax.tree.map(np.asarray, variables))
+
+    # denom 2: frames twice the size, downscaled on the device by chunk_step
+    # (the area downscale of a 2x nearest upscale gives the frames back)
+    for sd in (1, 2):
+        cfg = Config(detector=DetectorConfig(**DET_KW), tracker=TrackerConfig(**TRK_KW),
+                     pipeline=PipelineConfig(chunk_frames=chunk, decode_scale_denom=sd))
+        pipe = SegmentPipeline(cfg, state_dict, device="cpu")
+        big = frames.repeat(sd, axis=1).repeat(sd, axis=2)
+        state, n_valid = init_state(cfg.tracker, device="cpu"), 0
+        for k, (jout, jscale) in enumerate(want):
+            block = torch.from_numpy(big[k * chunk:(k + 1) * chunk])
+            state, out, scale = pipe.chunk_step(state, block, src_hw)
+            assert float(scale) == pytest.approx(jscale, rel=1e-6)
+            valid = jout.valid
+            np.testing.assert_array_equal(out.valid.numpy(), valid)
+            np.testing.assert_array_equal(out.track_id.numpy()[valid], jout.track_id[valid])
+            np.testing.assert_array_equal(out.classes.numpy()[valid], jout.classes[valid])
+            np.testing.assert_allclose(out.boxes.numpy()[valid], jout.boxes[valid], atol=0.2)
+            np.testing.assert_allclose(out.scores.numpy()[valid], jout.scores[valid], atol=1e-4)
+            n_valid += int(valid.sum())
+        assert n_valid > chunk      # tracks are confirmed and reported
 
 
 def test_detections_only_records_match_jax_writer():

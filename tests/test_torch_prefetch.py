@@ -154,9 +154,9 @@ def test_run_segment_closes_prefetcher_on_chunk_error(monkeypatch):
     closed = threading.Event()
 
     class Frames(run_mod.SegmentFrames):
-        def chunk_iter(self, chunk, scale_denom=1):
+        def chunk_iter(self, chunk, scale_denom=1, device="cpu"):
             try:
-                yield from super().chunk_iter(chunk, scale_denom)
+                yield from super().chunk_iter(chunk, scale_denom, device)
             finally:
                 closed.set()
 

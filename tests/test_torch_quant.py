@@ -415,11 +415,13 @@ def _drive(driver, cfg, tmp_path):
     if driver == "online":
         sess = online.OnlineTracker(cfg, device="cpu")
         sess.warmup((64, 96))                 # runs before calibration, outputs dropped
+        assert not quant.is_calibrated(sess.detector.module)   # zero frames never calibrate
         for t, f in enumerate(_frames(2)):
             sess.step(f, t)
         return sess.detector
     rig = online.OnlineMultiCamTracker(cfg, camera_names=[1, 2], device="cpu")
     rig.warmup((64, 96))
+    assert not quant.is_calibrated(rig.detector.module)
     for t, f in enumerate(_frames(2, cams=2)):
         rig.step(list(f), t)
     return rig.detector

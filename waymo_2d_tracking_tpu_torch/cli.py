@@ -31,10 +31,10 @@ The port adds:
 one on ``--device``, which equals the unsharded verb. The writing rank
 prints.
 
-``bench`` runs the port's harness (``python -m
-waymo_2d_tracking_tpu_torch.bench``, in this process's place) with the JAX
-verb's flags, the harness's ``--headline``, ``--int8``, ``--src-net`` and
-``--multicam``, and ``--device``.
+``bench`` runs the port's benchmark in this process's place: ``python3
+benchmark/run.py`` from the repository's root, as ``BENCHMARK.json`` runs
+it, given the verb's arguments unchanged (``--workload <cell> --seed <n>
+--seconds <s> --trace <0|1>``; the JAX verb's row flags are not taken).
 """
 from __future__ import annotations
 
@@ -44,8 +44,6 @@ import json
 import os
 import sys
 from typing import List, Optional
-
-from waymo_2d_tracking_tpu_torch import bench
 
 _ONLINE_SHARDED = ("--online is a single-host serving path; it does not compose with "
                    "--sharded (fan streams across processes instead, one OnlineTracker per chip)")
@@ -899,12 +897,16 @@ def cmd_doctor(args):
 
 
 def cmd_bench(args):
-    cmd = [sys.executable, "-m", "waymo_2d_tracking_tpu_torch.bench"] + bench.row_argv(args)
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = os.path.join(root, "benchmark", "run.py")
+    if not os.path.isfile(script):
+        sys.exit(f"bench: {script} is missing: the benchmark runs from a checkout of the "
+                 "repository")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         p for p in (root, os.environ.get("PYTHONPATH")) if p))
     sys.stdout.flush()
-    os.execve(sys.executable, cmd, env)
+    os.chdir(root)
+    os.execve(sys.executable, [sys.executable, script] + args.bench_args, env)
 
 
 def build_parser():
@@ -1098,8 +1100,12 @@ def build_parser():
     sp.add_argument("--compile-cache", dest="compile_cache", default=None, metavar="DIR|off")
     sp.set_defaults(fn=cmd_doctor)
 
-    sp = sub.add_parser("bench", help="run the benchmark harness")
-    bench.add_arguments(sp)
+    # a prefix no argument of benchmark/run.py starts with: every argument,
+    # its flags and -h included, lands in the remainder as given
+    sp = sub.add_parser("bench", prefix_chars="+", add_help=False,
+                        help="run the port's benchmark (benchmark/run.py)")
+    sp.add_argument("bench_args", nargs=argparse.REMAINDER,
+                    help="benchmark/run.py's arguments, passed on unchanged")
     sp.set_defaults(fn=cmd_bench)
     return p
 

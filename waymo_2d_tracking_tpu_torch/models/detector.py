@@ -14,6 +14,7 @@ staying f32 as in flax.
 from __future__ import annotations
 
 import contextlib
+import logging
 import math
 from typing import Dict, Optional
 
@@ -256,9 +257,9 @@ class DetectorRunner:
     ``torch.Generator().manual_seed(seed)``.
 
     Under ``quant='int8'`` the activation scales come from ``calibrate`` (the
-    drivers call it on their first real frames) or from the checkpoint, and
-    every forward first passes ``check_calibrated``, which raises on an
-    uncalibrated detector.
+    drivers' ``calibrate_once`` runs it on their first real frames) or from
+    the checkpoint, and every forward first passes ``check_calibrated``,
+    which raises on an uncalibrated detector.
     """
 
     def __init__(self, cfg: Optional[DetectorConfig] = None,
@@ -318,6 +319,22 @@ class DetectorRunner:
             yield
         finally:
             self._allow_uncalibrated = False
+
+    def calibrate_once(self, images: torch.Tensor) -> None:
+        """The int8 calibration hook of every driver, given each batch of
+        images it has just letterboxed for detection: under ``quant !=
+        'off'``, a module not yet calibrated (nor loaded calibrated) records
+        its activation scales on them (``calibrate``), then
+        ``check_calibrated`` guards. Does nothing under ``uncalibrated_ok``,
+        so a warm-up's all-zero frames never calibrate; once the guard has
+        passed it costs a host-side key compare, no device read."""
+        if self.cfg.quant == "off" or self._allow_uncalibrated:
+            return
+        if self._absmax_key() != self._calib_ok_key and not is_calibrated(self.module):
+            self.calibrate(images)
+            logging.getLogger(__name__).info(
+                "int8 PTQ: calibrated activation scales on one %d-image batch", images.shape[0])
+        self.check_calibrated()
 
     @torch.no_grad()
     def calibrate(self, images: torch.Tensor) -> None:

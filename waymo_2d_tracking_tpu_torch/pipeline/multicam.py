@@ -10,16 +10,16 @@ one auction launch per association stage carrying C problems: the
 counterpart of ``jax.vmap(track_step)``.
 
 Chunks have a fixed size; the tail is padded by repeating the last real
-frame (a blank tail longer than ``max_age`` would age every live track out
-of the final table that feeds the ``.gallery.npz`` sidecars), and the pad
-frames' outputs are cut. Outputs and the final per-camera states come back
+frame (``pipeline/run.py repeat_pad``), and the pad frames' outputs are
+cut. Outputs and the final per-camera states come back
 to the host through ``RollingFetch``.
 
 On the card the tracker steps replay a captured CUDA graph per frame
 (``tracker/graph.py``), one per (config, camera count, shapes). Under
 ``decode_scale_denom > 1`` the chunk is downscaled (``area_downscale``)
-where it is letterboxed: on the card after the copy, at source size. Cameras
-given as JPEG bytes are decoded on the host at the scaled size. Under
+where ``SegmentFrames.chunk_iter`` places it: on the card after the copy, at
+source size. Cameras given as JPEG bytes are decoded on the host at the
+scaled size. Under
 ``detector.quant='int8'`` the first real chunk's shared batch calibrates the
 activation scales.
 
@@ -53,12 +53,12 @@ from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
 from waymo_2d_tracking_tpu_torch.pipeline.link import write_gallery_sidecar
 from waymo_2d_tracking_tpu_torch.pipeline.run import (
     RollingFetch,
-    calibrate_params_from_frames,
     concat_host,
     count_detections,
     count_frames,
     count_tracks,
     dispatch_detect,
+    repeat_pad,
 )
 from waymo_2d_tracking_tpu_torch.tracker import init_multicam_state
 from waymo_2d_tracking_tpu_torch.tracker.graph import track_chunk
@@ -104,17 +104,6 @@ class MultiCamPipeline:
         self.detector = DetectorRunner(cfg.detector, state_dict, device=device, seed=seed)
         self.device = self.detector.device
         self._graphs: Dict = {}    # captured tracker steps (tracker/graph.py)
-        self._calibrated = False
-
-    def ensure_calibrated(self, frames_u8, src_hw) -> None:
-        """int8: calibrate on the first real chunk, (chunk, cams, H, W, 3) or
-        already flattened to the shared batch (chunk * cams, H, W, 3), at
-        ``src_hw``; once per pipeline."""
-        if self._calibrated or self.cfg.detector.quant == "off":
-            return
-        flat = frames_u8.reshape((-1,) + tuple(frames_u8.shape[-3:]))
-        calibrate_params_from_frames(self.detector, self.cfg, flat, src_hw)
-        self._calibrated = True
 
     def chunk_step(self, states: TrackerState, frames_u8, src_hw, real: Optional[int] = None):
         """(states, (chunk, cams, H, W, 3) u8 at the size the chunk iterator
@@ -132,8 +121,8 @@ class MultiCamPipeline:
                 frames = frames_u8.reshape((t * c,) + tuple(frames_u8.shape[2:])).to(self.device)
                 if tuple(frames.shape[1:3]) != tuple(src_hw):
                     frames = area_downscale(frames, self.cfg.pipeline.decode_scale_denom)
-                self.ensure_calibrated(frames, src_hw)
                 images, scale = letterbox_batch(frames, src_hw, self.cfg.detector.image_size)
+                self.detector.calibrate_once(images)
             with span("detect"):
                 flat = dispatch_detect(self.detector, self.cfg, images)
             count_detections(flat, None if real is None else real * c,
@@ -164,10 +153,7 @@ class MultiCamPipeline:
         count_frames(t_total, chunk, self.num_cams)
 
         states = init_multicam_state(cfg, self.num_cams, device=self.device)
-        # on the card decoded full-size frames cross and chunk_step
-        # downscales there; JPEG bytes decode at the scaled size on the host
-        iters = [s.chunk_iter(chunk, scale_denom=1 if self.device.type == "cuda"
-                              and s.frames is not None else sd) for s in segments]
+        iters = [s.chunk_iter(chunk, sd, self.device) for s in segments]
         fetcher = RollingFetch(depth=cfg.pipeline.prefetch_depth)
         src_hw = segments[0].scaled_hw(sd)
         scale = 1.0
@@ -215,10 +201,7 @@ class MultiCamPipeline:
         scale = 1.0
         count_frames(t_total, chunk, self.num_cams)
         for start in range(0, t_total, chunk):
-            block = frames[start:start + chunk]
-            if block.shape[0] < chunk:
-                pad = chunk - block.shape[0]
-                block = np.concatenate([block, np.repeat(block[-1:], pad, axis=0)])
+            block = repeat_pad(frames[start:start + chunk], chunk)
             states, outputs, scale = self.chunk_step(states, block, src_hw,
                                                      min(chunk, t_total - start))
             fetcher.push(outputs)

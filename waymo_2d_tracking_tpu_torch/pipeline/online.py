@@ -50,7 +50,6 @@ from waymo_2d_tracking_tpu_torch.data.preprocess import letterbox_batch
 from waymo_2d_tracking_tpu_torch.io_out import submission as subm
 from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
 from waymo_2d_tracking_tpu_torch.pipeline.run import (
-    calibrate_params_from_frames,
     count_detections,
     count_frames,
     count_tracks,
@@ -152,19 +151,11 @@ class _Session:
         self._latency = _LatencyWindow(latency_window)
         self._graph: Optional[CapturedTracker] = None
         self._frame_decoder = _FrameDecoder(cfg.pipeline.decode_scale_denom)
-        self._calibrated = False
         self.reset()
 
     def close(self) -> None:
         """Release the JPEG decoder's thread pool (idempotent)."""
         self._frame_decoder.close()
-
-    def _ensure_calibrated(self, frames_u8: np.ndarray, src_hw) -> None:
-        """int8: calibrate on the first real frame or tick, once."""
-        if self._calibrated or self.cfg.detector.quant == "off":
-            return
-        calibrate_params_from_frames(self.detector, self.cfg, frames_u8, src_hw)
-        self._calibrated = True
 
     def _fresh_state(self) -> TrackerState:
         raise NotImplementedError
@@ -210,12 +201,14 @@ class _Session:
         """(C, H, W, 3) uint8, a host array or a tensor already on the
         device -> (host TrackOutputs, scale); the live state advances by one
         frame. ``counted``: add the frames, detections and tracks to the
-        counters (not for the warm-up's all-zero frames)."""
+        counters (not for the warm-up's all-zero frames, which, run under
+        ``uncalibrated_ok``, calibrate nothing either)."""
         with span("staging"):
             if isinstance(frames_u8, np.ndarray):
                 frames_u8 = torch.from_numpy(np.ascontiguousarray(frames_u8))
             frames = frames_u8.to(self.device)
             images, scale = letterbox_batch(frames, src_hw, self.cfg.detector.image_size)
+            self.detector.calibrate_once(images)
         with span("detect"):
             dets = dispatch_detect(self.detector, self.cfg, images)
         with span("track"):
@@ -237,16 +230,14 @@ class _Session:
         return time.perf_counter() - t0
 
     def _timed_step(self, frames: Sequence[Frame]):
-        """Decode (JPEG bytes), calibrate (int8, first step), one device step;
+        """Decode (JPEG bytes), one device step (int8: calibrated at the first);
         timed from the host frames to the outputs on the host. Returns
         (outputs, scale from network to source pixels)."""
         t0 = time.perf_counter()
         with span("tick"):
             with span("stack"):
                 frames_u8, denom = self._frame_decoder.decode_batch(frames)
-            src_hw = tuple(frames_u8.shape[1:3])
-            self._ensure_calibrated(frames_u8, src_hw)
-            outputs, scale = self._device_step(frames_u8, src_hw)
+            outputs, scale = self._device_step(frames_u8, tuple(frames_u8.shape[1:3]))
         self._latency.add(time.perf_counter() - t0)
         self.frames_seen += 1
         return outputs, float(scale) / denom

@@ -11,7 +11,8 @@ chunk's frames with its state carried across chunks: on the card a CUDA
 graph of one step replayed per frame (``tracker/graph.py``), the
 counterpart of the JAX package's jitted ``lax.scan``. On the card the frames
 cross at their source size and are downscaled there; a CPU pipeline
-downscales on the host, in the prefetch worker, as the JAX package does.
+downscales on the host, in the prefetch worker, as the JAX package does
+(``SegmentFrames.chunk_iter`` decides, for every driver).
 Outputs come back once per chunk through ``RollingFetch``, which keeps at
 most ``prefetch_depth`` chunks in flight. Boxes map back to source pixels
 through the letterbox scale and the decode scale.
@@ -24,7 +25,7 @@ prefetch worker by the native batch decoder at ``decode_scale_denom``
 Detection goes through ``dispatch_detect``: the plain batched forward, or the
 test-time augmentation union (``pipeline/tta.py``) when the preset asks for
 it. Under ``detector.quant='int8'`` the first real chunk calibrates the
-activation scales (``calibrate_params_from_frames``), as in every driver.
+activation scales (``DetectorRunner.calibrate_once``), as in every driver.
 ``run_segments`` drives many segments with manifest resume and writes a
 ``.gallery.npz`` sidecar beside each track file (``pipeline/link.py``).
 
@@ -41,7 +42,6 @@ manifest) is ``w2t/records`` too. The counters: camera-frames
 from __future__ import annotations
 
 import dataclasses
-import logging
 import os
 import time
 from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
@@ -55,7 +55,6 @@ from waymo_2d_tracking_tpu_torch.data.prefetch import DevicePrefetcher
 from waymo_2d_tracking_tpu_torch.data.preprocess import area_downscale, letterbox_batch
 from waymo_2d_tracking_tpu_torch.io_out import submission as subm
 from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
-from waymo_2d_tracking_tpu_torch.models.quant import is_calibrated
 from waymo_2d_tracking_tpu_torch.pipeline.tta import detect_tta_batch
 from waymo_2d_tracking_tpu_torch.tracker import init_state
 from waymo_2d_tracking_tpu_torch.tracker.graph import track_chunk
@@ -96,55 +95,46 @@ class SegmentFrames:
         h, w = self.source_hw()
         return (-(-h // scale_denom), -(-w // scale_denom))
 
-    def chunk_iter(self, chunk: int, scale_denom: int = 1) -> Iterator[np.ndarray]:
-        """Yield (chunk, H, W, 3) uint8 arrays at ``scaled_hw(scale_denom)``:
-        decoded frames downscaled on the host (``area_downscale`` on CPU
-        tensors: the bytes of the JAX package's ``cv2.resize(...,
-        INTER_AREA)``), JPEG bytes decoded by the native batch decoder at
-        1/``scale_denom``. The last chunk is padded by REPEATING the final
-        real frame, not zeros: the tracker treats pad frames as real ones,
-        and a blank tail longer than max_age would age out every live track.
-        Pad-frame outputs are trimmed by the caller."""
+    def chunk_iter(self, chunk: int, scale_denom: int = 1,
+                   device="cpu") -> Iterator[np.ndarray]:
+        """Yield (chunk, H, W, 3) uint8 host arrays for a pipeline on
+        ``device``, which decides where the ``scale_denom`` downscale
+        happens: JPEG bytes are decoded by the native batch decoder at
+        1/``scale_denom`` on any device; decoded frames for a CUDA device
+        stay at the source size (they cross so and the device downscales
+        them); decoded frames for the CPU are downscaled here
+        (``area_downscale`` on CPU tensors: the bytes of the JAX package's
+        ``cv2.resize(..., INTER_AREA)``). The last chunk is padded by
+        ``repeat_pad``."""
         decoder = None
         if self.frames is None:
             decoder = BatchJpegDecoder(*self.scaled_hw(scale_denom), scale_denom=scale_denom)
+        host_downscale = scale_denom > 1 and torch.device(device).type != "cuda"
         try:
             for start in range(0, self.num_frames, chunk):
                 if decoder is not None:
                     block = decoder.decode(self.jpeg_frames[start:start + chunk])
                 else:
                     block = self.frames[start:start + chunk]
-                    if scale_denom > 1:
+                    if host_downscale:
                         block = area_downscale(torch.from_numpy(np.ascontiguousarray(block)),
                                                scale_denom).numpy()
-                if block.shape[0] < chunk:
-                    pad = chunk - block.shape[0]
-                    block = np.concatenate([block, np.repeat(block[-1:], pad, axis=0)])
-                yield block
+                yield repeat_pad(block, chunk)
         finally:
             if decoder is not None:
                 decoder.close()
 
 
-def calibrate_params_from_frames(detector: DetectorRunner, cfg: Config, frames_u8, src_hw) -> None:
-    """The int8 calibration hook of every driver (``detector.quant='int8'``):
-    letterbox the first real chunk exactly as serving does and record the
-    activation scales with one float pass (``DetectorRunner.calibrate``).
-    Nothing to do for a float config or an already calibrated detector (a
-    calibrated checkpoint). Ends with the guard: the detector is calibrated
-    for serving, or this raised. ``frames_u8``: (N, H, W, 3) uint8 at
-    ``src_hw``, host array or device tensor."""
-    if cfg.detector.quant == "off":
-        return
-    if not is_calibrated(detector.module):
-        if isinstance(frames_u8, np.ndarray):
-            frames_u8 = torch.from_numpy(np.ascontiguousarray(frames_u8))
-        frames = frames_u8.to(detector.device)
-        images, _ = letterbox_batch(frames, src_hw, cfg.detector.image_size)
-        detector.calibrate(images)
-        logging.getLogger(__name__).info(
-            "int8 PTQ: calibrated activation scales on one %d-frame chunk", images.shape[0])
-    detector.check_calibrated()
+def repeat_pad(block: np.ndarray, chunk: int) -> np.ndarray:
+    """``block`` (n <= chunk, ...) padded to ``chunk`` rows by REPEATING its
+    last frame, not zeros: the tracker treats pad frames as real ones, and a
+    blank tail longer than max_age would age out every live track (and the
+    final table the ``.gallery.npz`` sidecars come from). Pad-frame outputs
+    are trimmed by the caller."""
+    if block.shape[0] < chunk:
+        pad = chunk - block.shape[0]
+        block = np.concatenate([block, np.repeat(block[-1:], pad, axis=0)])
+    return block
 
 
 class RollingFetch:
@@ -231,15 +221,6 @@ class SegmentPipeline:
         self.device = self.detector.device
         self.last_state = None
         self._graphs: Dict = {}    # captured tracker steps (tracker/graph.py)
-        self._calibrated = False
-
-    def ensure_calibrated(self, frames_u8, src_hw) -> None:
-        """int8: calibrate on the first real chunk (``frames_u8`` at
-        ``src_hw``, after the decode downscale), once per pipeline."""
-        if self._calibrated or self.cfg.detector.quant == "off":
-            return
-        calibrate_params_from_frames(self.detector, self.cfg, frames_u8, src_hw)
-        self._calibrated = True
 
     def preprocess(self, frames_u8: np.ndarray, src_hw):
         """Host (N, H, W, 3) uint8 frames at the source size ``src_hw`` ->
@@ -255,14 +236,14 @@ class SegmentPipeline:
                       real: Optional[int] = None) -> Tuple[Detections, torch.Tensor]:
         """Device (chunk, H, W, 3) uint8 frames -> (detections, letterbox
         scale): downscaled by ``decode_scale_denom`` on the device where they
-        are larger than ``src_hw`` (the size after that downscale), the int8
-        calibration hook, letterbox, detect. ``real``: the chunk's real
+        are larger than ``src_hw`` (the size after that downscale), letterbox,
+        the int8 calibration hook, detect. ``real``: the chunk's real
         frames (the rest repeat the last), for the counters; None: all."""
         with span("staging"):
             if tuple(frames.shape[1:3]) != tuple(src_hw):
                 frames = area_downscale(frames, self.cfg.pipeline.decode_scale_denom)
-            self.ensure_calibrated(frames, src_hw)
             images, scale = letterbox_batch(frames, src_hw, self.cfg.detector.image_size)
+            self.detector.calibrate_once(images)
         with span("detect"):
             dets = dispatch_detect(self.detector, self.cfg, images)
         count_detections(dets, real, self.cfg.tracker.birth_score_threshold)
@@ -296,7 +277,6 @@ class SegmentPipeline:
         sd = cfg.pipeline.decode_scale_denom
         t_total = segment.num_frames
         src_hw = segment.scaled_hw(sd)
-        on_card = self.device.type == "cuda"
         count_frames(t_total, chunk)
 
         state = init_state(cfg.tracker, device=self.device)
@@ -304,10 +284,7 @@ class SegmentPipeline:
         scale = 1.0
         t0 = time.perf_counter()
         fetcher = RollingFetch(depth=cfg.pipeline.prefetch_depth)
-        # on the card decoded full-size frames cross and are downscaled
-        # there; JPEG bytes are decoded at the scaled size on the host
-        card_downscale = on_card and segment.frames is not None
-        blocks = segment.chunk_iter(chunk, scale_denom=1 if card_downscale else sd)
+        blocks = segment.chunk_iter(chunk, sd, self.device)
         with DevicePrefetcher(blocks, depth=cfg.pipeline.prefetch_depth,
                               device=self.device) as prefetcher:
             for i, frames in enumerate(prefetcher):
