@@ -1519,7 +1519,7 @@ def chunk_split(torch, pipe, frames, chunk, tta):
     from waymo_2d_tracking_tpu_torch.data.preprocess import area_downscale, letterbox_batch
     from waymo_2d_tracking_tpu_torch.pipeline.tta import tta_candidates_batched
     from waymo_2d_tracking_tpu_torch.tracker import init_state, track_segment
-    from waymo_2d_tracking_tpu_torch.tracker.graph import track_chunk
+    from waymo_2d_tracking_tpu_torch.tracker.graph import join, track_chunk
 
     cfg, runner = pipe.cfg, pipe.detector
     sd = cfg.pipeline.decode_scale_denom
@@ -1544,6 +1544,7 @@ def chunk_split(torch, pipe, frames, chunk, tta):
         ev[4].record()
         state, outs = track_chunk(init_state(cfg.tracker, device="cuda"), dets, cfg.tracker,
                                   pipe._graphs)
+        join(pipe._graphs, "cuda")
         ev[5].record()
         e_state, e_outs = track_segment(init_state(cfg.tracker, device="cuda"), dets, cfg.tracker)
         ev[6].record()
@@ -1857,7 +1858,7 @@ def phase_config4(np, torch, counters, card, frames, name="config4_multicam", ba
     from waymo_2d_tracking_tpu_torch.pipeline.multicam import MultiCamPipeline, split_cameras
     from waymo_2d_tracking_tpu_torch.pipeline.run import SegmentFrames
     from waymo_2d_tracking_tpu_torch.tracker import init_multicam_state, track_segment
-    from waymo_2d_tracking_tpu_torch.tracker.graph import track_chunk
+    from waymo_2d_tracking_tpu_torch.tracker.graph import join, track_chunk
 
     detector = {**CONFIG4["detector"], **({"backbone": backbone} if backbone else {})}
     cfg = _update(Config(), {**CONFIG4, "detector": detector,
@@ -1922,6 +1923,7 @@ def phase_config4(np, torch, counters, card, frames, name="config4_multicam", ba
         fresh = init_multicam_state(cfg, cams, device="cuda")
         states, outs = track_chunk(fresh, split_cameras(dets, chunk, cams), cfg.tracker,
                                    pipe._graphs)
+        join(pipe._graphs, "cuda")
         ev[4].record()
         e_states, e_outs = track_segment(fresh, split_cameras(dets, chunk, cams), cfg.tracker)
         ev[5].record()
@@ -2205,7 +2207,7 @@ def tta_split(torch, pipe, block):
     from waymo_2d_tracking_tpu_torch.pipeline.multicam import split_cameras
     from waymo_2d_tracking_tpu_torch.pipeline.tta import flip_image, scale_image, unflip_boxes
     from waymo_2d_tracking_tpu_torch.tracker import init_multicam_state, track_segment
-    from waymo_2d_tracking_tpu_torch.tracker.graph import track_chunk
+    from waymo_2d_tracking_tpu_torch.tracker.graph import join, track_chunk
 
     cfg, runner = pipe.cfg, pipe.detector
     chunk, cams = block.shape[:2]
@@ -2237,6 +2239,7 @@ def tta_split(torch, pipe, block):
         ev[3 + len(views)].record()
         fresh = init_multicam_state(cfg, cams, device="cuda")
         states, outs = track_chunk(fresh, dets, cfg.tracker, pipe._graphs)
+        join(pipe._graphs, "cuda")
         ev[4 + len(views)].record()
         e_states, e_outs = track_segment(fresh, dets, cfg.tracker)
         ev[5 + len(views)].record()

@@ -351,6 +351,7 @@ def test_card_group_crosses_pinned_and_matches_the_stacked_path(tmp_path, monkey
     prefetcher's bytes, and returns what the clip method (its cameras
     stacked on the host) returns for the same frames."""
     from waymo_2d_tracking_tpu_torch.pipeline import multicam
+    from waymo_2d_tracking_tpu_torch.tracker.graph import chunk_done, to_host
     segs = _rig_segments(hws=[(72, 104)] * RIG_CAMS)
     pipe = multicam.MultiCamPipeline(_tiny_cfg(), num_cams=RIG_CAMS, device=card)
     seen = []
@@ -358,7 +359,8 @@ def test_card_group_crosses_pinned_and_matches_the_stacked_path(tmp_path, monkey
 
     def recorded(self, states, frames, *a):
         out = step(self, states, frames, *a)
-        seen.append((torch.as_tensor(frames).cpu().numpy().copy(), out[1].to_numpy()))
+        seen.append((torch.as_tensor(frames).cpu().numpy().copy(),
+                     to_host(out[1], chunk_done(self._graphs, self.device))))
         return out
     monkeypatch.setattr(multicam.MultiCamPipeline, "chunk_step", recorded)
     pipe.run_segments_group(segs, str(tmp_path / "warm"))        # builds the graphs

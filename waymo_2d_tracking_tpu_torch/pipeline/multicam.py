@@ -12,10 +12,14 @@ counterpart of ``jax.vmap(track_step)``.
 Chunks have a fixed size; the tail is padded by repeating the last real
 frame (``pipeline/run.py repeat_pad``), and the pad frames' outputs are
 cut. Outputs and the final per-camera states come back
-to the host through ``RollingFetch``.
+to the host through ``RollingFetch``, each copy behind its chunk's tracker
+event alone (``tracker/graph.py to_host``).
 
 On the card the tracker steps replay a captured CUDA graph per frame
-(``tracker/graph.py``), one per (config, camera count, shapes). Under
+(``tracker/graph.py``), one per (config, camera count, shapes), on the
+pipeline's tracker stream: the driver queues the next chunk's staging and
+forward on its own stream while the tracker runs, so the forward fills the
+SMs the auction leaves idle. Under
 ``decode_scale_denom > 1`` the chunk is downscaled (``area_downscale``)
 where ``SegmentFrames.chunk_iter`` places it: on the card after the copy, at
 source size. Cameras given as JPEG bytes are decoded on the host at the
@@ -61,7 +65,7 @@ from waymo_2d_tracking_tpu_torch.pipeline.run import (
     repeat_pad,
 )
 from waymo_2d_tracking_tpu_torch.tracker import init_multicam_state
-from waymo_2d_tracking_tpu_torch.tracker.graph import track_chunk
+from waymo_2d_tracking_tpu_torch.tracker.graph import chunk_done, join, to_host, track_chunk
 from waymo_2d_tracking_tpu_torch.types import Detections, TrackerState
 from waymo_2d_tracking_tpu_torch.utils.profiling import span
 
@@ -110,7 +114,9 @@ class MultiCamPipeline:
         gave, a host array or a tensor already on the device, ``src_hw`` the
         size after ``decode_scale_denom``) -> (states', outputs on the device
         (chunk, cams, S, ...), scale): one shared-backbone batch through the
-        detector, then the camera-batched tracker. Frames larger than
+        detector, then the camera-batched tracker, on the card on this
+        pipeline's lane: read the states and outputs behind
+        ``chunk_done(self._graphs, self.device)``. Frames larger than
         ``src_hw`` are downscaled on the device. ``real``: the chunk's real
         frames (the rest repeat the last), for the counters; None: all."""
         t, c = frames_u8.shape[:2]
@@ -162,10 +168,10 @@ class MultiCamPipeline:
             for i, frames in enumerate(prefetcher):    # (chunk, cams, H, W, 3)
                 states, outputs, scale = self.chunk_step(states, frames, src_hw,
                                                          min(chunk, t_total - i * chunk))
-                fetcher.push(outputs)
+                fetcher.push(outputs, chunk_done(self._graphs, self.device))
         outputs_host = fetcher.finish()
         with span("fetch"):
-            final_states = states.to_numpy()
+            final_states = to_host(states, chunk_done(self._graphs, self.device))
         total_scale = float(scale) / sd
 
         with span("records"):
@@ -204,8 +210,9 @@ class MultiCamPipeline:
             block = repeat_pad(frames[start:start + chunk], chunk)
             states, outputs, scale = self.chunk_step(states, block, src_hw,
                                                      min(chunk, t_total - start))
-            fetcher.push(outputs)
+            fetcher.push(outputs, chunk_done(self._graphs, self.device))
         outputs = concat_host(fetcher.finish(), t_total)
+        join(self._graphs, self.device)    # the states are used on the caller's stream
         count_tracks(outputs)
         return states, outputs, scale
 

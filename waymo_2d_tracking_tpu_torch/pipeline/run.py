@@ -9,12 +9,16 @@ of the JAX package's ``cv2`` INTER_AREA resize), letterboxed, run through
 the batched detector (NMS kernel inside), and the tracker steps through the
 chunk's frames with its state carried across chunks: on the card a CUDA
 graph of one step replayed per frame (``tracker/graph.py``), the
-counterpart of the JAX package's jitted ``lax.scan``. On the card the frames
+counterpart of the JAX package's jitted ``lax.scan``, on the graph cache's
+own stream, so that the next chunk's staging and forward, queued on the
+driver's stream, run beside it. On the card the frames
 cross at their source size and are downscaled there; a CPU pipeline
 downscales on the host, in the prefetch worker, as the JAX package does
 (``SegmentFrames.chunk_iter`` decides, for every driver).
 Outputs come back once per chunk through ``RollingFetch``, which keeps at
-most ``prefetch_depth`` chunks in flight. Boxes map back to source pixels
+most ``prefetch_depth`` chunks in flight and copies each behind its own
+chunk's tracker event (``tracker/graph.py to_host``), never behind the
+driver's stream; the final table too. Boxes map back to source pixels
 through the letterbox scale and the decode scale.
 
 A segment's frames are decoded arrays or JPEG bytes (``jpeg_frames``, e.g.
@@ -57,7 +61,7 @@ from waymo_2d_tracking_tpu_torch.io_out import submission as subm
 from waymo_2d_tracking_tpu_torch.models.detector import DetectorRunner
 from waymo_2d_tracking_tpu_torch.pipeline.tta import detect_tta_batch
 from waymo_2d_tracking_tpu_torch.tracker import init_state
-from waymo_2d_tracking_tpu_torch.tracker.graph import track_chunk
+from waymo_2d_tracking_tpu_torch.tracker.graph import ChunkDone, chunk_done, to_host, track_chunk
 from waymo_2d_tracking_tpu_torch.types import Detections, TrackerState
 from waymo_2d_tracking_tpu_torch.utils.profiling import count, span, tracing
 
@@ -140,22 +144,25 @@ def repeat_pad(block: np.ndarray, chunk: int) -> np.ndarray:
 class RollingFetch:
     """Bounded window of chunk outputs still on the device: once more than
     ``depth`` chunks are queued, the oldest is copied to the host (which
-    waits for it), so the host never runs unboundedly ahead of the card."""
+    waits for it), so the host never runs unboundedly ahead of the card.
+    ``done``: the ``ChunkDone`` of the chunk that made the outputs, whose
+    copy then waits on that chunk's tracker alone (``to_host``); None:
+    the copy waits on the current stream."""
 
     def __init__(self, depth: int = 2):
         self.depth = max(int(depth), 1)
         self._dev: List = []
         self._host: List = []
 
-    def push(self, outputs) -> None:
-        self._dev.append(outputs)
+    def push(self, outputs, done: Optional[ChunkDone] = None) -> None:
+        self._dev.append((outputs, done))
         if len(self._dev) > self.depth:
             with span("fetch"):
-                self._host.append(self._dev.pop(0).to_numpy())
+                self._host.append(to_host(*self._dev.pop(0)))
 
     def finish(self) -> List:
         with span("fetch"):
-            self._host.extend(o.to_numpy() for o in self._dev)
+            self._host.extend(to_host(*o) for o in self._dev)
         self._dev = []
         return self._host
 
@@ -255,8 +262,9 @@ class SegmentPipeline:
         (state, device (chunk, H, W, 3) uint8 frames, ``src_hw``) -> (state',
         outputs on the device (chunk, S, ...), letterbox scale). The tracker
         steps through the chunk's frames, on the card by the captured step
-        (``tracker/graph.py``) this pipeline keeps. ``real`` as in
-        ``_detect_chunk``."""
+        (``tracker/graph.py``) this pipeline keeps, on its lane: read the
+        state and outputs behind ``chunk_done(self._graphs, self.device)``.
+        ``real`` as in ``_detect_chunk``."""
         with span("chunk"):
             dets, scale = self._detect_chunk(frames, src_hw, real)
             with span("track"):
@@ -294,11 +302,11 @@ class SegmentPipeline:
                     fetcher.push(dets)
                 else:
                     state, outputs, scale = self.chunk_step(state, frames, src_hw, real)
-                    fetcher.push(outputs)
+                    fetcher.push(outputs, chunk_done(self._graphs, self.device))
         outputs_host = fetcher.finish()
         if not detections_only:
             with span("fetch"):
-                self.last_state = state.to_numpy()
+                self.last_state = to_host(state, chunk_done(self._graphs, self.device))
         wall = time.perf_counter() - t0
 
         with span("records"):

@@ -27,11 +27,35 @@ state replays the driver's cached graph for its (config, shapes, dtypes,
 device), a CPU state runs the eager ``track_segment``. Python branches of
 ``track_step`` on the config are fixed at capture, so the key holds the whole
 ``TrackerConfig``. A graph's buffers serve one caller at a time.
+
+On the card a chunk's tracker work runs on a stream of its own (``Lane``:
+one high-priority stream per graph cache and device, kept in the cache):
+the detections' copies in, the replays and the copies into the output
+stack. The chunk is latency-bound (the auction holds one warp a camera for
+thousands of serial rounds), so the next chunk's staging and forward,
+which the driver queues on its own stream meanwhile, fill the SMs it leaves
+idle. Only the state threads from chunk to chunk, and it stays on the lane.
+Before enqueuing, the lane waits on the caller's stream (the detections, a
+fresh state), with no host synchronize; the caller's tensors get
+``record_stream``; an event is recorded behind the chunk (``ChunkDone``).
+The state and outputs ``track_chunk`` returns are ready once that event
+has passed, so a consumer waits on it and never on the caller's stream:
+``to_host`` copies a record on the lane's copy stream behind the event
+alone (the chunked drivers' ``RollingFetch`` and final state), ``join``
+makes the current stream wait on it (every other caller, at once). A graph
+replayed on the lane runs at the lane's priority: CUDA launches a graph's
+kernels at the priority of the stream it is launched into.
+
+While tracing, ``track_chunk`` counts ``track_chunks`` (chunks tracked on
+the lane) and ``track_overlapped`` (of them, those for which the cache's
+previous chunk was still running when it was called: the chunk's own
+staging and forward, queued before the call, then ran beside it); the
+benchmark's ``track_overlap_share`` is their ratio.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -42,7 +66,7 @@ from waymo_2d_tracking_tpu_torch.ops.roi_align import roi_align_cuda
 from waymo_2d_tracking_tpu_torch.ops.topk import topk_threshold_cuda
 from waymo_2d_tracking_tpu_torch.tracker.tracker import track_segment, track_step
 from waymo_2d_tracking_tpu_torch.types import Detections, TrackerState, TrackOutputs
-from waymo_2d_tracking_tpu_torch.utils.profiling import count
+from waymo_2d_tracking_tpu_torch.utils.profiling import count, tracing
 
 # the kernel wrappers whose launch counts a replay carries on
 COUNTED = (nms_mask_cuda, auction_kernel_cuda, topk_threshold_cuda, roi_align_cuda)
@@ -172,16 +196,89 @@ class CapturedTracker(StaticTrackerStep):
             fn.last_shape = shape
 
 
+@dataclasses.dataclass(frozen=True)
+class ChunkDone:
+    """The end of one chunk's tracker work on the card: ``event``, recorded
+    on the lane behind the chunk, and ``copy``, the lane's stream for
+    copies to the host."""
+
+    event: torch.cuda.Event
+    copy: torch.cuda.Stream
+
+
+class Lane:
+    """Where a graph cache's chunks run on one device: ``stream``, high
+    priority, for the tracker's work; ``copy`` for copies to the host;
+    ``done``, the ``ChunkDone`` of the last chunk (None before any)."""
+
+    def __init__(self, device: torch.device):
+        self.stream = torch.cuda.Stream(device=device, priority=-1)
+        self.copy = torch.cuda.Stream(device=device)
+        self.done: Optional[ChunkDone] = None
+
+
+def _lane_key(device) -> Tuple:
+    """The cache key of the lane on ``device``; ``cuda`` is the current
+    card, as the tensors on it name it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return ("lane", device)
+
+
+def chunk_done(graphs: Dict, device) -> Optional[ChunkDone]:
+    """The ``ChunkDone`` of the last chunk ``track_chunk`` tracked with
+    ``graphs`` on ``device``; None on the CPU or before any."""
+    lane = graphs.get(_lane_key(device))
+    return None if lane is None else lane.done
+
+
+def to_host(record, done: Optional[ChunkDone]):
+    """``record.to_numpy()`` once ``done`` has passed: copied on the lane's
+    copy stream, which waits on that event alone, so nothing the caller
+    queued since is drained. ``done`` None: on the current stream."""
+    if done is None:
+        return record.to_numpy()
+    done.copy.wait_event(done.event)
+    with torch.cuda.stream(done.copy):
+        return record.to_numpy()
+
+
+def join(graphs: Dict, device) -> None:
+    """Make the current stream wait on the last chunk ``graphs`` tracked on
+    ``device`` (no host synchronize): ``track_chunk``'s results are then
+    ready for any work queued on it. Nothing on the CPU."""
+    done = chunk_done(graphs, device)
+    if done is not None:
+        torch.cuda.current_stream(done.copy.device).wait_event(done.event)
+
+
 def track_chunk(state: TrackerState, det_seq: Detections, cfg: TrackerConfig,
                 graphs: Dict) -> Tuple[TrackerState, TrackOutputs]:
     """``track_segment``'s contract for a driver that owns ``graphs`` (a
     dict): on the card the captured step for this key, built at first use
-    and kept there; on the CPU the eager loop."""
+    and kept there, replayed on the cache's lane (module docstring: read the
+    results after ``to_host`` or ``join``); on the CPU the eager loop."""
     if state.mean.device.type != "cuda":
         return track_segment(state, det_seq, cfg)
-    det = det_seq[0]
-    key = graph_key(cfg, state, det)
-    captured = graphs.get(key)
-    if captured is None:
-        captured = graphs[key] = CapturedTracker(cfg, state, det)
-    return captured.run(state, det_seq)
+    dev = state.mean.device
+    lane = graphs.get(_lane_key(dev))
+    if lane is None:
+        lane = graphs[_lane_key(dev)] = Lane(dev)
+    if tracing():
+        count("track_chunks", 1)
+        count("track_overlapped", int(lane.done is not None and not lane.done.event.query()))
+    lane.stream.wait_stream(torch.cuda.current_stream(dev))
+    for t in _fields(state) + _fields(det_seq):
+        t.record_stream(lane.stream)
+    with torch.cuda.stream(lane.stream):
+        det = det_seq[0]
+        key = graph_key(cfg, state, det)
+        captured = graphs.get(key)
+        if captured is None:
+            captured = graphs[key] = CapturedTracker(cfg, state, det)
+        result = captured.run(state, det_seq)
+        event = torch.cuda.Event()
+        event.record(lane.stream)
+    lane.done = ChunkDone(event, lane.copy)
+    return result

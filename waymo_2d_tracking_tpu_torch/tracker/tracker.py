@@ -195,8 +195,10 @@ class Tracker:
         return track_step(state, dets, self.cfg)
 
     def run(self, det_seq: Detections, state: Optional[TrackerState] = None):
-        from waymo_2d_tracking_tpu_torch.tracker.graph import track_chunk
+        from waymo_2d_tracking_tpu_torch.tracker.graph import join, track_chunk
 
         if state is None:
             state = self.init()
-        return track_chunk(state, det_seq.to(self.device), self.cfg, self._graphs)
+        result = track_chunk(state, det_seq.to(self.device), self.cfg, self._graphs)
+        join(self._graphs, self.device)
+        return result
